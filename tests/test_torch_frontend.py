@@ -1,0 +1,137 @@
+"""The port's front end: it imports nothing of JAX or the reference, and
+its copies of NRC, shredding, materialization, unnesting and the plan
+passes print the reference's materialized programs and plans."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+from repro.core import codegen as RCG
+from repro.core import materialization as RM
+from repro.core import nrc as RN
+from repro.core.unnesting import Catalog as RCatalog
+from repro_torch.core import codegen as TCG
+from repro_torch.core import materialization as TM
+from repro_torch.core import nrc as TN
+from repro_torch.core.unnesting import Catalog as TCatalog
+from repro_torch.obs import reset_telemetry
+
+from test_torch_queries import (diff_catalog, diff_types, fresh_start,
+                                flat_to_nested_query, nested_to_flat_query,
+                                nested_to_nested_query, quickstart,
+                                tpch_catalog, tpch_types, build_query)
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_telemetry():
+    reset_telemetry()
+    yield
+
+
+def test_port_imports_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'src')!r})\n"
+        "import repro_torch, repro_torch.core.codegen, repro_torch.exec.ops\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                     re.MULTILINE)
+
+
+def test_port_sources_import_no_jax_and_no_reference():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "src",
+                                                  "repro_torch")):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith(".py")]
+    assert len(files) > 20
+    for f in files:
+        with open(f) as fh:
+            hits = _IMPORT.findall(fh.read())
+        assert not hits, (f, hits)
+
+
+# ---------------------------------------------------------------------------
+# materialized programs and compiled plans print the same text
+# ---------------------------------------------------------------------------
+
+def _texts(N, M, CG, Catalog, build, types, catalog_of, de):
+    fresh_start(N, value=100)
+    q = build(N)
+    sp = M.shred_program(N.Program([N.Assignment("Q", q)]), types(N),
+                         domain_elimination=de)
+    cp = CG.compile_program(sp, catalog_of(Catalog))
+    return N.pretty_program(sp.program), cp.pretty(), cp.graph.pretty()
+
+
+def _assert_same_texts(build, types, catalog_of):
+    for de in (True, False):
+        want = _texts(RN, RM, RCG, RCatalog, build, types, catalog_of, de)
+        got = _texts(TN, TM, TCG, TCatalog, build, types, catalog_of, de)
+        for w, g in zip(want, got):
+            assert g == w, (de, w, g)
+
+
+def test_quickstart_texts_match_reference():
+    _assert_same_texts(lambda N: quickstart(N)[0],
+                       lambda N: quickstart(N)[1],
+                       lambda C: C(unique_keys={"Part__F": ("pid",)}))
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+def test_tpch_texts_match_reference(levels):
+    _assert_same_texts(lambda N: flat_to_nested_query(N, levels),
+                       tpch_types, tpch_catalog)
+
+    def n_types(N):
+        return {"NCOP": flat_to_nested_query(N, levels).ty,
+                "Part": tpch_types(N)["Part"]}
+
+    _assert_same_texts(
+        lambda N: nested_to_nested_query(
+            N, levels, "NCOP", flat_to_nested_query(N, levels).ty),
+        n_types, tpch_catalog)
+    _assert_same_texts(
+        lambda N: nested_to_flat_query(
+            N, levels, "NCOP", flat_to_nested_query(N, levels).ty),
+        n_types, tpch_catalog)
+
+
+@pytest.mark.parametrize("shape", ["nested_agg", "flat_agg", "nested_map",
+                                   "nested_join_plain"])
+def test_differential_texts_match_reference(shape):
+    spec = dict(seed=1, n_orders=5, n_parts=4, zipf=0.0, shape=shape,
+                sel="qty_ge", selc=2)
+    _assert_same_texts(lambda N: build_query(N, spec), diff_types,
+                       diff_catalog)
+
+
+def test_unported_passes_raise_naming_the_roadmap():
+    from repro_torch.core import plans as TP
+    from repro_torch.core.plans import ExecSettings, ScanP, eval_plan
+    fresh_start(TN)
+    q, types = quickstart(TN)
+    sp = TM.shred_program(TN.Program([TN.Assignment("Q", q)]), types,
+                          domain_elimination=True)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        TCG.compile_program(sp, skew_stats={"COP__F": object()})
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        TCG.compile_program(sp, cost_mode="auto")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        TP.morsel_fold([], [], set())
+    with pytest.raises(NotImplementedError, match="queue 1 items 5"):
+        eval_plan(ScanP("COP__F", "c"), {}, ExecSettings(dist=object()))
