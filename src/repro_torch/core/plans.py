@@ -8,8 +8,9 @@ expression AST with Var(name=<column>).
 
 The evaluator (``eval_plan``) runs a plan over an environment of
 FlatBags on one device (PyTorch twin of ``repro.core.plans``; the
-distributed context, the skew and HyperCube passes and morsel folding
-come with later slices of the port).
+distributed context and the skew and HyperCube passes come with later
+slices of the port). ``morsel_fold`` says how a morsel-streamed run's
+per-morsel outputs re-fold into the one-shot answer.
 """
 
 from __future__ import annotations
@@ -1658,9 +1659,122 @@ def apply_hypercube_program(graph: ProgramGraph, stats: Dict[str, object],
         "queue 1 item 4")
 
 
+# ---------------------------------------------------------------------------
+# morsel streaming: how per-morsel partial outputs re-fold
+# ---------------------------------------------------------------------------
+
+def _fold_rename(col: str, rename: tuple, alias_map: tuple) -> str:
+    for old, new in rename:
+        if col == old:
+            return new
+    for oa, na in alias_map:
+        if col.startswith(oa + "."):
+            return na + col[len(oa):]
+    return col
+
+
 def morsel_fold(plans: Sequence[Tuple[str, "Plan"]],
                 outputs: Sequence[str],
                 streamed: set) -> Dict[str, tuple]:
-    """Morsel-streaming fold analysis. Not ported yet."""
-    raise NotImplementedError(
-        "morsel_fold: morsel streaming is ROADMAP.md queue 1 item 6")
+    """Per program output: how per-morsel partial results re-fold into
+    the one-shot answer when the parts in ``streamed`` are fed morsel
+    windows (all other environment bags resident and identical across
+    morsels).
+
+    Fold specs:
+
+    * ``("first",)``            — the output never reads a streamed
+      part: every morsel computes the same bag, keep the first.
+    * ``("concat",)``           — row-local subtree (scans, selects,
+      maps, joins, unnests): the one-shot rows are exactly the
+      disjoint union of the morsel rows, because morsel windows keep
+      each parent row co-resident with ALL its children (label
+      intervals) and joins against resident parts see full build sides.
+    * ``("sum", keys, vals)``   — a SumAggP/FusedJoinAggP at the output
+      ROOT: morsels emit partial group sums; re-aggregating the
+      concatenated partials with the same keys/vals is the one-shot
+      result (grand-total grouping is associative).
+    * ``("dedup", cols)``       — a DeDupP at the output root: dedup of
+      the concatenated per-morsel dedups.
+
+    An aggregate anywhere BELOW the output root over streamed rows is
+    ``StreamingUnsupportedError``: its per-morsel value is a partial,
+    and whatever consumes it would fold partials through a non-linear
+    operator. (RefP chains into CSE-shared nodes are followed; shared
+    subtrees that never touch a streamed part are harmless — they are
+    resident-identical every morsel.)
+    """
+    from repro_torch.errors import StreamingUnsupportedError
+    by_name = dict(plans)
+
+    def _touches(name: str, seen: frozenset = frozenset()) -> bool:
+        if name in streamed:
+            return True
+        plan = by_name.get(name)
+        if plan is None or name in seen:
+            return False
+        return any(_touches(d, seen | {name}) for d in plan_deps(plan))
+
+    touch_cache: Dict[str, bool] = {}
+
+    def touches(name: str) -> bool:
+        if name not in touch_cache:
+            touch_cache[name] = _touches(name)
+        return touch_cache[name]
+
+    def subtree_has_streamed_agg(p: "Plan") -> bool:
+        """An aggregate/dedup whose OWN subtree reads streamed rows,
+        anywhere under ``p`` (following references)."""
+        for sub in _walk_plan(p):
+            if isinstance(sub, (SumAggP, FusedJoinAggP, DeDupP)):
+                if any(touches(d) for d in plan_deps(sub)):
+                    return True
+            elif isinstance(sub, RefP):
+                ref = by_name.get(sub.name)
+                if ref is not None and touches(sub.name) \
+                        and subtree_has_streamed_agg(ref):
+                    return True
+        return False
+
+    def spec_for(name: str) -> tuple:
+        plan = by_name.get(name)
+        if plan is None:            # a raw environment part
+            return ("concat",) if name in streamed else ("first",)
+        if not touches(name):
+            return ("first",)
+        if isinstance(plan, RefP):
+            inner = spec_for(plan.name)
+            if inner[0] == "sum":
+                return ("sum",
+                        tuple(_fold_rename(c, plan.rename, plan.alias_map)
+                              for c in inner[1]),
+                        tuple(_fold_rename(c, plan.rename, plan.alias_map)
+                              for c in inner[2]))
+            if inner[0] == "dedup":
+                cols = inner[1]
+                return ("dedup",
+                        None if cols is None else
+                        tuple(_fold_rename(c, plan.rename, plan.alias_map)
+                              for c in cols))
+            return inner
+        if isinstance(plan, (SumAggP, FusedJoinAggP)):
+            below = plan.child if isinstance(plan, SumAggP) else plan.join
+            if subtree_has_streamed_agg(below):
+                raise StreamingUnsupportedError(
+                    f"{name}: aggregate over streamed rows below the "
+                    f"output aggregate — partials would not re-fold")
+            return ("sum", tuple(plan.keys), tuple(plan.vals))
+        if isinstance(plan, DeDupP):
+            if subtree_has_streamed_agg(plan.child):
+                raise StreamingUnsupportedError(
+                    f"{name}: aggregate over streamed rows below the "
+                    f"output dedup — partials would not re-fold")
+            return ("dedup",
+                    None if plan.cols is None else tuple(plan.cols))
+        if subtree_has_streamed_agg(plan):
+            raise StreamingUnsupportedError(
+                f"{name}: aggregate over streamed rows in non-root "
+                f"position — its per-morsel value is a partial")
+        return ("concat",)
+
+    return {out: spec_for(out) for out in outputs}

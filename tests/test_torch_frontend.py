@@ -39,6 +39,8 @@ def test_port_imports_no_jax_and_no_reference():
         f"sys.path.insert(0, {os.path.join(ROOT, 'src')!r})\n"
         "import repro_torch, repro_torch.core.codegen, repro_torch.exec.ops\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.storage, repro_torch.serve\n"
+        "import repro_torch.core.skew, repro_torch.storage.morsel\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -121,8 +123,8 @@ def test_differential_texts_match_reference(shape):
 
 
 def test_unported_passes_raise_naming_the_roadmap():
-    from repro_torch.core import plans as TP
     from repro_torch.core.plans import ExecSettings, ScanP, eval_plan
+    from repro_torch.serve import QueryService
     fresh_start(TN)
     q, types = quickstart(TN)
     sp = TM.shred_program(TN.Program([TN.Assignment("Q", q)]), types,
@@ -131,7 +133,10 @@ def test_unported_passes_raise_naming_the_roadmap():
         TCG.compile_program(sp, skew_stats={"COP__F": object()})
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         TCG.compile_program(sp, cost_mode="auto")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TP.morsel_fold([], [], set())
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        QueryService(types, skew_partitions=8)
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        QueryService(types).execute_many(
+            [TN.Program([TN.Assignment("Q", q)])], {})
     with pytest.raises(NotImplementedError, match="queue 1 items 5"):
         eval_plan(ScanP("COP__F", "c"), {}, ExecSettings(dist=object()))
