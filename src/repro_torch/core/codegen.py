@@ -1,6 +1,6 @@
 """Code generation (paper §3.2/§4.6) — running compiled plans over the
-columnar backend on one device (PyTorch twin of the local half of
-``repro.core.codegen``).
+columnar backend, locally or on the sites of a virtual mesh (PyTorch twin
+of ``repro.core.codegen``).
 
 * ``compile_program``   — compiles a materialized shredded program
   (output of ``materialization.shred_program``) into a ``ProgramGraph``:
@@ -17,9 +17,11 @@ columnar backend on one device (PyTorch twin of the local half of
   FlatBags (the columnar twin of interpreter.shred_value).
 * ``unshred_parts``     — the cogroup step: clusters every dictionary by
   label and derives CSR offsets (the UNSHRED cost in the paper).
+* ``compile_program_distributed`` — the same schedule on every site of
+  a virtual mesh (``exec.dist``), with ``DistRunner`` as its warm path.
 
-``compile_program_distributed`` and ``run_standard`` come with later
-slices of the port (ROADMAP.md queue 1 items 3 and 5).
+``run_standard`` comes with a later slice of the port (ROADMAP.md
+queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -178,16 +180,33 @@ def _compile_program_impl(sp, catalog, optimize, cse, outputs, skew_stats,
     identical subplans between TOP and dictionary assignments are
     hash-consed into shared nodes.
 
-    Statistics-driven planning (``skew_stats`` with the skew or
-    HyperCube passes, ``cost_mode="auto"``) waits for ROADMAP.md
-    queue 1 item 4 and raises ``NotImplementedError`` here."""
+    ``skew_stats`` ({bag: skew.TableStats}, typically from
+    ``storage.table_stats``) turns on the automatic skew pass
+    (``skew_mode="auto"``): joins whose probe-side heavy-hitter
+    statistics predict imbalance over ``skew_partitions`` become
+    ``SkewJoinP`` nodes with the heavy-key set lifted as a runtime
+    parameter. ``skew_mode="off"`` disables the pass regardless of
+    statistics (the forced-off baseline).
+
+    ``hypercube_mode="auto"`` additionally lets the HyperCube pass
+    rewrite multiway equi-join chains to one-round ``MultiJoinP``
+    exchanges when the statistics predict the replicated single round
+    ships fewer rows than the binary cascade; ``"off"`` keeps the
+    cascade (the comparison baseline).
+
+    ``cost_mode="auto"`` turns on cost-based planning
+    (``repro_torch.core.cost``, a copy of the reference's): a
+    cardinality estimator over ``skew_stats`` reorders inner fk
+    equi-join chains before the skew / hypercube passes peel them,
+    prices the hypercube-vs-cascade gate with estimated intermediates,
+    makes fuse-vs-unfuse under skew a costed choice, and annotates every
+    plan node with ``est_rows``. ``observed_rows`` ({plan-signature
+    digest: measured rows}) overrides formula estimates on recompile.
+    ``cost_mode="off"`` (the default) keeps every decision identical to
+    the cost-free compiler."""
     assert skew_mode in ("auto", "off"), skew_mode
     assert hypercube_mode in ("auto", "off"), hypercube_mode
     assert cost_mode in ("auto", "off"), cost_mode
-    if cost_mode == "auto":
-        raise NotImplementedError(
-            "compile_program: cost_mode='auto' (cost-based planning) is "
-            "ROADMAP.md queue 1 item 4")
     catalog = catalog or Catalog()
     named: List[Tuple[str, Plan]] = []
     roles: Dict[str, str] = {}
@@ -202,28 +221,49 @@ def _compile_program_impl(sp, catalog, optimize, cse, outputs, skew_stats,
     outs = tuple(outputs) if outputs is not None else program_outputs(sp)
     graph = build_program_graph(named, outs, roles)
     skew_info: Dict[str, tuple] = {}
+    estimator = None
+    estimates: Dict[str, Optional[int]] = {}
+    if cost_mode == "auto":
+        from .cost import CardinalityEstimator, order_join_chains
+        estimator = CardinalityEstimator(skew_stats or {},
+                                         n_partitions=skew_partitions,
+                                         observed=observed_rows)
     if optimize:
         graph = dce_program(graph)
         graph = prune_program_columns(graph)
         if cse:
             graph = cse_program(graph)
+        if estimator is not None:
+            # decision (a): costed join ordering, before the skew and
+            # hypercube passes so both see the chosen chain order
+            order_join_chains(graph, estimator)
         if skew_stats is not None and skew_mode == "auto":
             skew_info = apply_skew_program(graph, skew_stats,
                                            n_partitions=skew_partitions,
-                                           threshold=skew_threshold)
+                                           threshold=skew_threshold,
+                                           estimator=estimator)
         if skew_stats is not None and hypercube_mode == "auto":
+            # after the skew pass: chains absorb SkewJoinP heavy-key
+            # params into per-dimension hypercube spreading, keeping
+            # the same parameter names (warm rebinds stay retrace-free)
             apply_hypercube_program(graph, skew_stats,
-                                    n_partitions=skew_partitions)
+                                    n_partitions=skew_partitions,
+                                    estimator=estimator)
         # annotate last: the pruning pass rebuilds every node, which
         # would discard the EXPLAIN attributes
         for nd in graph.nodes:
             annotate_orders(nd.plan)
             annotate_partitioning(nd.plan)
+    if estimator is not None:
+        # est_rows on every node, post-passes (the serving cache
+        # snapshots the per-node roots)
+        estimates = estimator.annotate_graph(graph)
     return CompiledProgram([(nd.name, nd.plan) for nd in graph.nodes],
                            sp, graph, outs,
                            skew_params={k: (bag, attr) for
                                         k, (bag, attr, _) in
-                                        skew_info.items()})
+                                        skew_info.items()},
+                           estimates=estimates)
 
 
 def run_flat_program(cp: CompiledProgram, env: Dict[str, FlatBag],
@@ -359,6 +399,56 @@ def jit_program(cp: CompiledProgram,
 
     defaults = collect_params(cp.graph) if cp.graph is not None else {}
     return ProgramExecutable(cp, outputs, defaults, cfn, fn)
+
+
+def compile_program_distributed(
+        cp: CompiledProgram, env: Dict[str, FlatBag], mesh,
+        use_kernel: bool = False, outputs: Optional[tuple] = None,
+        params: Optional[Dict[str, object]] = None,
+        **dist_kwargs):
+    """Run the SAME program schedule on every site of a virtual mesh:
+    one ``exec.dist.compile_distributed`` run evaluates every node of
+    the DAG (shared subplans once, exchanges elided across assignment
+    boundaries via delivered partitionings). Returns ``(DistRunner,
+    outputs, metrics)`` — the runner is the warm path, and
+    ``adaptive=True`` resolves bucket capacities before the runner is
+    handed out (the serving warmup).
+
+    Runtime parameters — every ``N.Param`` of the program plus every
+    ``SkewJoinP`` heavy-key set — reach every site (defaults overridden
+    by ``params``), so a warm ``runner(env, params=new_bindings)``
+    rebinds new values with ZERO retracing, exactly like the local path
+    (``TRACE_STATS`` moves only on a compile attempt)."""
+    _compile_fault("dist")
+    from repro_torch.exec import dist as D
+    outs = tuple(outputs) if outputs is not None \
+        else (tuple(cp.outputs) or tuple(n for n, _ in cp.plans))
+    defaults = collect_params(cp.graph) if cp.graph is not None else {}
+    if params:
+        unknown = set(params) - set(defaults)
+        assert not unknown, (
+            f"unknown parameter(s) {sorted(unknown)}; this program "
+            f"binds {sorted(defaults)}")
+        defaults.update(params)
+    # a defaultless N.Param the caller did not bind stays out of the
+    # bindings — evaluation then raises its own clear unbound error
+    defaults = {k: v for k, v in defaults.items() if v is not None}
+
+    def fn(env_local, ctx, params_local):
+        # host-side, like the reference's counter inside the traced
+        # function: only site 0 of a compile attempt records it
+        TRACE_STATS["traces"] = TRACE_STATS.get("traces", 0) + 1
+        with _span("compile", kind="xla_trace", path="dist",
+                   plans=len(cp.plans)):
+            s = ExecSettings(use_kernel=use_kernel, dist=ctx,
+                             params=params_local)
+            local = dict(env_local)
+            for name, plan in cp.plans:
+                local[name] = eval_plan(plan, local, s)
+            return {o: local[o] for o in outs}
+
+    return D.compile_distributed(fn, env, mesh, use_kernel=use_kernel,
+                                 params=defaults, **dist_kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -409,8 +409,9 @@ def _ecount(name: str) -> None:
 
 @dataclass
 class ExecSettings:
-    """Execution knobs (the reference's fields; ``dist`` and ``explain``
-    must stay None until the distributed and EXPLAIN slices land)."""
+    """Execution knobs (the reference's fields). ``dist`` is one site's
+    ``exec.dist.DistContext`` on the virtual mesh; ``explain`` must stay
+    None until EXPLAIN ANALYZE is ported (ROADMAP.md queue 1 item 7)."""
     use_kernel: bool = False        # CUDA kernels for Gamma+ and joins
     default_expansion: float = 1.0
     # distributed context (None => local, single partition)
@@ -483,10 +484,9 @@ def _scan(env: Dict[str, FlatBag], name: str, alias: str,
 def eval_plan(p: Plan, env: Dict[str, FlatBag],
               s: Optional[ExecSettings] = None) -> FlatBag:
     s = s or ExecSettings()
-    if s.dist is not None or s.explain is not None:
+    if s.explain is not None:
         raise NotImplementedError(
-            "eval_plan: distributed execution and EXPLAIN ANALYZE are "
-            "ROADMAP.md queue 1 items 5 and 7")
+            "eval_plan: EXPLAIN ANALYZE is ROADMAP.md queue 1 item 7")
     return _eval_plan_node(p, env, s)
 
 
@@ -553,11 +553,18 @@ def _eval_plan_node(p: Plan, env: Dict[str, FlatBag],
     if isinstance(p, SumAggP):
         child = eval_plan(p.child, env, s)
         _ecount("sum_by")
+        if s.dist is not None:
+            return s.dist.sum_by(child, p.keys, p.vals,
+                                 local_preagg=p.local_preagg,
+                                 use_kernel=s.use_kernel,
+                                 exchange_on=p.exchange_on)
         return X.sum_by(child, p.keys, p.vals, use_kernel=s.use_kernel)
     if isinstance(p, DeDupP):
         child = eval_plan(p.child, env, s)
         cols = p.cols or tuple(child.columns)
         _ecount("dedup")
+        if s.dist is not None:
+            return s.dist.dedup(child, cols, exchange_on=p.exchange_on)
         return X.dedup(child, cols)
     if isinstance(p, UnionP):
         _ecount("union")
@@ -579,6 +586,11 @@ def _eval_plan_node(p: Plan, env: Dict[str, FlatBag],
         right = eval_plan(p.join.right, env, s)
         joined = _exec_join(p.join, left, right, s)
         _ecount("sum_by")
+        if s.dist is not None:
+            return s.dist.sum_by(joined, p.keys, p.vals,
+                                 local_preagg=p.local_preagg,
+                                 use_kernel=s.use_kernel,
+                                 exchange_on=p.exchange_on)
         return X.sum_by(joined, p.keys, p.vals, use_kernel=s.use_kernel)
     raise TypeError(f"eval_plan: {type(p).__name__}")
 
@@ -615,17 +627,55 @@ def _exec_skew_join(p: SkewJoinP, left: FlatBag, right: FlatBag,
                     s: ExecSettings) -> FlatBag:
     """Evaluate a planned skew join. Locally the heavy-key set is
     irrelevant (no rows to place) and the node degrades to its plain
-    join — the differential parity guarantee."""
-    return _exec_join(p.join, left, right, s)
+    join — the differential parity guarantee. Under a DistContext the
+    bound heavy-key array drives the light/heavy split."""
+    j = p.join
+    if s.dist is None:
+        return _exec_join(j, left, right, s)
+    _ecount("join")
+    _ecount("skew_join")
+    heavy = None
+    if s.params is not None and p.heavy_param in s.params:
+        heavy = _heavy_tensor(s.params[p.heavy_param], left.device)
+    if heavy is None:
+        heavy = _heavy_tensor(p.heavy_default, left.device)
+    return s.dist.join(left, right, j.left_on, j.right_on, how=j.how,
+                       unique_right=j.unique_right,
+                       expansion=j.expansion, heavy_keys=heavy)
+
+
+def _heavy_tensor(v, device) -> torch.Tensor:
+    """A heavy-key binding (array, tensor or tuple) as int64 on
+    ``device``."""
+    if torch.is_tensor(v):
+        return v.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(v, dtype=np.int64), device=device)
 
 
 def _exec_multi_join(p: MultiJoinP, env: Dict[str, FlatBag],
                      s: ExecSettings) -> FlatBag:
     """Evaluate a hypercube multiway join. Locally the hypercube is
     pure placement, so the node degrades to the binary cascade it
-    replaced (the differential parity guarantee)."""
+    replaced (the differential parity guarantee). Under a DistContext
+    every relation is scattered to its hypercube slice in one packed
+    replicating collective, then the stages probe locally."""
     spine = eval_plan(p.child, env, s)
     rights = [eval_plan(st.plan, env, s) for st in p.stages]
+    if s.dist is not None:
+        for _ in p.stages:
+            _ecount("join")
+        _ecount("multi_join")
+        heavy = []
+        for name, dflt in zip(p.heavy_params, p.heavy_defaults):
+            if name is None:
+                heavy.append(None)
+            elif s.params is not None and name in s.params:
+                heavy.append(_heavy_tensor(s.params[name], spine.device))
+            else:
+                heavy.append(_heavy_tensor(dflt, spine.device))
+        return s.dist.multi_join(spine, rights, p.stages, p.shares,
+                                 p.rel_routes, heavy,
+                                 use_kernel=s.use_kernel)
     for st, right in zip(p.stages, rights):
         _ecount("join")
         if st.unique_right:
@@ -643,6 +693,11 @@ def _exec_multi_join(p: MultiJoinP, env: Dict[str, FlatBag],
 def _exec_join(p: JoinP, left: FlatBag, right: FlatBag,
                s: ExecSettings) -> FlatBag:
     _ecount("join")
+    if s.dist is not None:
+        return s.dist.join(left, right, p.left_on, p.right_on, how=p.how,
+                           unique_right=p.unique_right,
+                           broadcast=p.broadcast, skew_aware=p.skew_aware,
+                           expansion=p.expansion)
     if p.unique_right:
         bag = X.fk_join(left, right, p.left_on, p.right_on, how=p.how,
                         use_kernel=s.use_kernel)
@@ -1637,26 +1692,321 @@ def collect_plan_params(graph: ProgramGraph) -> Dict[str, object]:
 
 
 # ---------------------------------------------------------------------------
-# passes that wait for later slices of the port
+# automated skew pass: JoinP -> SkewJoinP where heavy-hitter statistics
+# predict partition imbalance (DESIGN.md "Automated skew handling")
 # ---------------------------------------------------------------------------
+
+def _scan_aliases(p: Plan) -> Dict[str, str]:
+    """alias -> environment bag for every scan in a subtree (the map the
+    skew pass uses to tie join key columns back to stored parts)."""
+    out: Dict[str, str] = {}
+    for sub in _walk_plan(p):
+        if isinstance(sub, ScanP):
+            out[sub.alias] = sub.bag
+        elif isinstance(sub, _PrunedScan):
+            out[sub.inner.alias] = sub.inner.bag
+        elif isinstance(sub, OuterUnnestP):
+            out[sub.alias] = sub.child_bag
+    return out
+
 
 def apply_skew_program(graph: ProgramGraph, stats: Dict[str, object],
                        n_partitions: int, threshold: float = 0.025,
                        max_heavy: Optional[int] = None,
                        param_prefix: str = "__hk",
                        estimator=None) -> Dict[str, object]:
-    """The automatic skew pass (JoinP -> SkewJoinP). Not ported yet."""
-    raise NotImplementedError(
-        "apply_skew_program: skew planning is ROADMAP.md queue 1 item 4")
+    """The automatic skew decision, applied program-wide (in place).
+
+    For every hash join whose probe-side key is a single column scanned
+    from a bag with statistics (``skew.TableStats``, typically derived
+    from a stored dataset's zone maps + heavy-key sketch), ask
+    ``skew.stats_heavy_array`` whether the predicted heavy-hitter set
+    is non-empty; if so the join becomes a ``SkewJoinP`` whose heavy-key
+    set is lifted as the runtime parameter ``__hk<i>``. A
+    ``FusedJoinAggP`` whose embedded join qualifies un-fuses into
+    Gamma+ over the skew join (placement beats fusion under skew — the
+    heavy rows never cross the wire at all).
+
+    With a ``cost.CardinalityEstimator`` (``estimator``), the un-fuse
+    is a COSTED choice (``cost.choose_unfuse``): the fused pipeline's
+    priced imbalance vs. the light exchange + heavy-build replication
+    + an extra aggregation pass. Mild skew keeps the fusion; without an
+    estimator the PR 5 rule (always un-fuse when heavy keys exist)
+    applies unchanged. The decision uses only ``probe_heavy`` — no
+    ``__hk`` parameter is registered for a join that stays fused.
+
+    Zero predicted heavy keys => the plan is left byte-identical (the
+    degenerate no-op contract asserted by the skew unit tests).
+    Returns {param_name: (bag, attr, padded heavy-key array)} — the
+    provenance lets a serving layer rebind fresh heavy-key sets for the
+    same (bag, attr) on warm calls."""
+    from . import skew as SK
+    mh = max_heavy if max_heavy is not None else SK.MAX_HEAVY
+    defaults: Dict[str, object] = {}
+    # one sketch decision AND one lifted parameter per (bag, attr):
+    # shared relations (a dictionary probed by several joins, the same
+    # part under CSE) are consulted once per program compile, and every
+    # join keyed on them rebinds through the SAME __hk<i> name
+    decided: Dict[Tuple[str, str], Optional[object]] = {}
+    param_of: Dict[Tuple[str, str], str] = {}
+
+    def probe_heavy(j: JoinP):
+        if j.broadcast or j.skew_aware or len(j.left_on) != 1:
+            return None
+        head, sep, attr = j.left_on[0].partition(".")
+        if not sep:
+            return None
+        bag = _scan_aliases(j.left).get(head)
+        if bag is None:
+            return None
+        key = (bag, attr)
+        if key not in decided:
+            decided[key] = SK.stats_heavy_array(stats, bag, attr,
+                                                n_partitions, threshold,
+                                                mh)
+        heavy = decided[key]
+        return None if heavy is None else (bag, attr, heavy)
+
+    def lift(j: JoinP):
+        hit = probe_heavy(j)
+        if hit is None:
+            return None
+        bag, attr, heavy = hit
+        name = param_of.get((bag, attr))
+        if name is None:
+            name = f"{param_prefix}{len(defaults)}"
+            param_of[(bag, attr)] = name
+            defaults[name] = (bag, attr, heavy)
+        return SkewJoinP(j, name, tuple(int(x) for x in heavy))
+
+    def fusion_wins(p: FusedJoinAggP, hit) -> bool:
+        """Costed decision (c): does keeping the fused join+aggregate
+        beat un-fusing into Gamma+ over a SkewJoinP? Heavy-key
+        frequencies come from the sketch, scaled by the estimated
+        probe survival ratio (the probe may be filtered)."""
+        from . import cost as C
+        bag, attr, heavy = hit
+        ts = stats.get(bag)
+        if ts is None:
+            return False
+        hset = {int(x) for x in heavy}
+        freqs = [float(c) for k, c in getattr(ts, "heavy", {}).get(attr,
+                                                                   ())
+                 if int(k) in hset]
+        base_rows = max(float(getattr(ts, "effective_rows", ts.rows)),
+                        1.0)
+        probe = estimator.estimate(p.join.left)
+        probe_rows = probe.rows if probe.known else base_rows
+        ratio = min(probe_rows / base_rows, 1.0)
+        return not C.choose_unfuse(probe_rows,
+                                   [f * ratio for f in freqs],
+                                   n_partitions)
+
+    def rewrite(p: Plan) -> Plan:
+        if isinstance(p, (SkewJoinP, MultiJoinP)):
+            return p            # idempotent: never double-wrap
+        if isinstance(p, JoinP):
+            p.left = rewrite(p.left)
+            p.right = rewrite(p.right)
+            return lift(p) or p
+        if isinstance(p, FusedJoinAggP):
+            p.join.left = rewrite(p.join.left)
+            p.join.right = rewrite(p.join.right)
+            if estimator is not None:
+                hit = probe_heavy(p.join)
+                if hit is not None and fusion_wins(p, hit):
+                    return p    # costed: keep the fusion, no param
+            sj = lift(p.join)
+            if sj is not None:
+                return SumAggP(sj, p.keys, p.vals, p.local_preagg,
+                               p.exchange_on)
+            return p
+        for attr in _CHILD_ATTRS:
+            if hasattr(p, attr):
+                setattr(p, attr, rewrite(getattr(p, attr)))
+        return p
+
+    for nd in graph.nodes:
+        nd.plan = rewrite(nd.plan)
+    return defaults
+
+
+# ---------------------------------------------------------------------------
+# HyperCube pass: inner equi-join chains -> one-round MultiJoinP when
+# TableStats say the replicating exchange beats the binary cascade
+# (DESIGN.md "HyperCube exchange")
+# ---------------------------------------------------------------------------
+
+def _peel_join_chain(p: Plan, min_joins: int):
+    """Maximal left-deep chain of directly nested inner JoinP /
+    SkewJoinP under ``p``: returns (base, [(JoinP, heavy_param,
+    heavy_default), ...] innermost-first) or None. Outer joins,
+    broadcast and legacy skew_aware joins break the chain — only the
+    inner hash-exchange cascade is replaceable by one round."""
+    stages = []
+    cur = p
+    while True:
+        hp, hd = None, ()
+        j = cur
+        if isinstance(j, SkewJoinP):
+            hp, hd = j.heavy_param, j.heavy_default
+            j = j.join
+        if not isinstance(j, JoinP) or j.how != "inner" or j.broadcast \
+                or j.skew_aware:
+            break
+        stages.append((j, hp, hd))
+        cur = j.left
+    if len(stages) < min_joins:
+        return None
+    stages.reverse()
+    return cur, stages
+
+
+def _hypercube_rewrite_chain(p: Plan, stats: Dict[str, object],
+                             n_partitions: int, min_joins: int,
+                             estimator=None) -> Optional["MultiJoinP"]:
+    """Try to rewrite the chain rooted at ``p`` into a MultiJoinP.
+    Conservative: any relation without TableStats, any join key not
+    traceable to a single source relation, or a share assignment whose
+    replicated wire volume exceeds the cascade's leaves the plan
+    untouched.
+
+    With a ``cost.CardinalityEstimator`` (``estimator``) the cascade
+    side of the gate is priced from ESTIMATED intermediate
+    cardinalities (``skew.cascade_send_rows_est``) — a shrinking chain
+    makes the cascade cheaper than the stats-free "every intermediate
+    ~ spine" assumption, an expanding one dearer; relation row counts
+    also refine through the estimator (a filtered base relation ships
+    its selected rows, not the full scan)."""
+    from . import skew as SK
+    peeled = _peel_join_chain(p, min_joins)
+    if peeled is None:
+        return None
+    base, stages = peeled
+    rels = [base] + [j.right for (j, _, _) in stages]
+    amap: Dict[str, int] = {}
+    rel_bags = []
+    for ri, rp in enumerate(rels):
+        al = _scan_aliases(rp)
+        for alias in al:
+            if alias in amap:
+                return None     # alias reused across relations: bail
+            amap[alias] = ri
+        rel_bags.append(set(al.values()))
+
+    def owner_of(cols) -> Optional[int]:
+        owners = set()
+        for c in cols:
+            head, sep, _ = c.partition(".")
+            if not sep or head not in amap:
+                return None     # derived column: not routable
+            owners.add(amap[head])
+        return owners.pop() if len(owners) == 1 else None
+
+    dim_of: Dict[tuple, int] = {}
+    dim_heavy: List[list] = []
+    stage_dim: List[int] = []
+    for i, (j, hp, hd) in enumerate(stages):
+        o = owner_of(j.left_on)
+        if o is None or o > i:
+            return None         # key must live on the accumulated spine
+        k = (o, tuple(j.left_on))
+        if k not in dim_of:
+            dim_of[k] = len(dim_of)
+            dim_heavy.append([None, ()])
+        d = dim_of[k]
+        stage_dim.append(d)
+        if hp is not None:
+            if dim_heavy[d][0] is None:
+                dim_heavy[d] = [hp, tuple(hd)]
+            elif dim_heavy[d][0] != hp:
+                dim_heavy[d] = [None, ()]   # conflicting params: drop
+
+    routes: List[list] = [[] for _ in rels]
+    for (o, cols), d in dim_of.items():
+        routes[o].append((d, tuple(cols), "probe"))
+    for i, (j, _, _) in enumerate(stages):
+        routes[i + 1].append((stage_dim[i], tuple(j.right_on), "build"))
+
+    rows = []
+    for rp, bags in zip(rels, rel_bags):
+        est_rows = estimator.rows_of(rp) if estimator is not None \
+            else None
+        if est_rows is not None:
+            rows.append(max(int(est_rows), 1))
+            continue
+        if not bags:
+            return None
+        rs = []
+        for b in bags:
+            ts = stats.get(b)
+            if ts is None or not hasattr(ts, "rows"):
+                return None
+            # observed (fed-back) cardinality wins over the estimate
+            rs.append(int(getattr(ts, "effective_rows", ts.rows)))
+        rows.append(max(rs))
+    rel_dim_sets = [tuple(sorted({d for d, _, _ in r})) for r in routes]
+    shares, _load = SK.plan_hypercube_shares(rel_dim_sets, rows,
+                                             n_partitions)
+    cascade = SK.cascade_send_rows(rows)
+    if estimator is not None:
+        inters = estimator.chain_intermediates(
+            base, [j for (j, _, _) in stages])
+        if inters is not None:
+            cascade = SK.cascade_send_rows_est(rows, inters)
+    if SK.hypercube_send_rows(rel_dim_sets, rows, shares) > cascade:
+        return None             # replication would out-cost the cascade
+    sts = tuple(MultiJoinStage(j.right, tuple(j.left_on),
+                               tuple(j.right_on), j.unique_right,
+                               j.expansion) for (j, _, _) in stages)
+    return MultiJoinP(base, sts, tuple(int(s) for s in shares),
+                      tuple(tuple(r) for r in routes),
+                      tuple(h[0] for h in dim_heavy),
+                      tuple(tuple(h[1]) for h in dim_heavy))
 
 
 def apply_hypercube_program(graph: ProgramGraph, stats: Dict[str, object],
                             n_partitions: int, min_joins: int = 2,
                             estimator=None) -> int:
-    """The HyperCube pass (join chains -> MultiJoinP). Not ported yet."""
-    raise NotImplementedError(
-        "apply_hypercube_program: HyperCube planning is ROADMAP.md "
-        "queue 1 item 4")
+    """Rewrite multiway inner equi-join chains to one-round hypercube
+    ``MultiJoinP`` nodes, program-wide (in place, after the skew pass —
+    SkewJoinP wrappers are absorbed and their heavy-key parameters keep
+    their names, so serving-layer rebinds are untouched). Returns the
+    number of chains rewritten."""
+    count = 0
+
+    def rewrite(p: Plan) -> Plan:
+        nonlocal count
+        if isinstance(p, MultiJoinP):
+            return p
+        mj = _hypercube_rewrite_chain(p, stats, n_partitions, min_joins,
+                                      estimator)
+        if mj is not None:
+            count += 1
+            mj.child = rewrite(mj.child)
+            for st in mj.stages:
+                st.plan = rewrite(st.plan)
+            return mj
+        if isinstance(p, FusedJoinAggP):
+            mj = _hypercube_rewrite_chain(p.join, stats, n_partitions,
+                                          min_joins, estimator)
+            if mj is not None:
+                count += 1
+                mj.child = rewrite(mj.child)
+                for st in mj.stages:
+                    st.plan = rewrite(st.plan)
+                # un-fuse: Gamma+ above the one-round join (placement
+                # beats fusion, same trade the skew pass makes)
+                return SumAggP(mj, p.keys, p.vals, p.local_preagg,
+                               p.exchange_on)
+        for attr in _CHILD_ATTRS:
+            if hasattr(p, attr):
+                setattr(p, attr, rewrite(getattr(p, attr)))
+        return p
+
+    for nd in graph.nodes:
+        nd.plan = rewrite(nd.plan)
+    return count
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .obs.metrics import host_recording
+
 
 @dataclass
 class FaultRule:
@@ -98,8 +100,12 @@ class FaultRegistry:
         fires on it (None = proceed normally). Call order is the only
         clock, so a fixed schedule + seed replays identically; while NO
         rules are armed, calls are not even counted — site indices
-        start from the moment a schedule is armed."""
-        if not self.rules:
+        start from the moment a schedule is armed. A thread that does not
+        record host telemetry (a site of the virtual mesh other than
+        site 0, see ``obs.metrics.host_recording``) consults nothing, so
+        a site is called once per run, as at the reference's single
+        trace."""
+        if not self.rules or not host_recording():
             return None
         idx = self.calls.get(site, 0)
         self.calls[site] = idx + 1

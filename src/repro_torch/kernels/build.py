@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -92,6 +93,14 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all()[name]))
             _LIBS[name] = lib
         return lib
+
+
+def bump(namespace: dict, counter: str) -> None:
+    """Add one to the launch counter ``counter`` of a kernel module
+    (``namespace`` is its ``globals()``). The distributed path launches
+    from one thread per site, so the add holds a lock."""
+    with _COUNT_LOCK:
+        namespace[counter] += 1
 
 
 def check(err: int, what: str) -> None:

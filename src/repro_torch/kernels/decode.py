@@ -108,8 +108,7 @@ def rle_expand_cuda(values: torch.Tensor, lengths: torch.Tensor, n: int,
         err = fn(values.data_ptr(), lengths.data_ptr(), r, n,
                  scratch.data_ptr(), out.data_ptr(), build.stream_handle(dev))
     build.check(err, "rle_expand")
-    global RLE_LAUNCHES
-    RLE_LAUNCHES += 1
+    build.bump(globals(), "RLE_LAUNCHES")
     return out
 
 
@@ -130,8 +129,7 @@ def delta_unpack_cuda(z: torch.Tensor, first: int,
         err = fn(z.data_ptr(), _DELTA_WIDTH[z.dtype], n, _u64(first),
                  tiles.data_ptr(), out.data_ptr(), build.stream_handle(dev))
     build.check(err, "delta_unpack")
-    global DELTA_LAUNCHES
-    DELTA_LAUNCHES += 1
+    build.bump(globals(), "DELTA_LAUNCHES")
     return out
 
 
@@ -155,8 +153,7 @@ def bitunpack_cuda(words: torch.Tensor, k: int, vpw: int, n: int, lo: int,
         err = fn(words.data_ptr(), k, vpw, n, _u64(lo), out.data_ptr(),
                  build.stream_handle(dev))
     build.check(err, "bitunpack")
-    global BITUNPACK_LAUNCHES
-    BITUNPACK_LAUNCHES += 1
+    build.bump(globals(), "BITUNPACK_LAUNCHES")
     return out
 
 
@@ -176,6 +173,5 @@ def dict_gather_cuda(values: torch.Tensor, codes: torch.Tensor,
                  _CODE_KIND[codes.dtype], n, out.data_ptr(),
                  build.stream_handle(dev))
     build.check(err, "dict_gather")
-    global DICT_LAUNCHES
-    DICT_LAUNCHES += 1
+    build.bump(globals(), "DICT_LAUNCHES")
     return out

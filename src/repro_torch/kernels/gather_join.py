@@ -65,8 +65,7 @@ def merge_positions_cuda(sorted_keys: torch.Tensor, queries: torch.Tensor
         err = fn(sorted_keys.data_ptr(), r, queries.data_ptr(), n,
                  lo.data_ptr(), hi.data_ptr(), build.stream_handle(dev))
     build.check(err, "merge_positions")
-    global MERGE_LAUNCHES
-    MERGE_LAUNCHES += 1
+    build.bump(globals(), "MERGE_LAUNCHES")
     return lo, hi
 
 
@@ -88,6 +87,5 @@ def gather_rows_cuda(values: torch.Tensor, idx: torch.Tensor
         err = fn(values.data_ptr(), r, d, idx.data_ptr(), n, out.data_ptr(),
                  build.stream_handle(dev))
     build.check(err, "gather_rows")
-    global GATHER_LAUNCHES
-    GATHER_LAUNCHES += 1
+    build.bump(globals(), "GATHER_LAUNCHES")
     return out

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from . import decode, gather_join, ref, segment_fused
+from . import decode, gather_join, ref, segment_fused, shuffle_pack
 
 
 def _route(t: torch.Tensor, what: str) -> bool:
@@ -59,6 +59,42 @@ def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return gather_join.gather_rows_cuda(values.contiguous(),
                                         idx.to(torch.int64).contiguous())
 
+
+
+def pack_rows(values: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor
+              ) -> torch.Tensor:
+    """The packed exchange's send buffer: out[j] = values[idx[j]] where
+    ``ok[j]`` and idx in range, else 0. values (r, d) int64 bit-view
+    lanes; idx int32/int64; ok bool/int32."""
+    if not _route(values, "pack_rows"):
+        return ref.pack_rows_ref(values, idx, ok)
+    return shuffle_pack.pack_rows_cuda(values.contiguous(), idx.contiguous(),
+                                       ok.contiguous())
+
+
+def replicate_scatter(values: torch.Tensor, vidx: torch.Tensor,
+                      ok: torch.Tensor, repl: int) -> torch.Tensor:
+    """The HyperCube replicating scatter: pack_rows from source row
+    ``vidx[j] // repl``; negative ids give 0."""
+    if not _route(values, "replicate_scatter"):
+        return ref.replicate_scatter_ref(values, vidx, ok, repl)
+    return shuffle_pack.replicate_scatter_cuda(
+        values.contiguous(), vidx.contiguous(), ok.contiguous(), repl)
+
+
+def unpack_cols(buf: torch.Tensor) -> torch.Tensor:
+    """(rows, lanes) wire buffer -> contiguous (lanes, rows)."""
+    if not _route(buf, "unpack_cols"):
+        return ref.unpack_cols_ref(buf)
+    return shuffle_pack.unpack_cols_cuda(buf.contiguous())
+
+
+def member_mask(keys: torch.Tensor, heavy: torch.Tensor) -> torch.Tensor:
+    """keys[i] in the padded heavy-key set (INT64_MAX never matches)."""
+    if not _route(keys, "member_mask"):
+        return ref.member_mask_ref(keys, heavy)
+    return shuffle_pack.member_mask_cuda(keys.to(torch.int64).contiguous(),
+                                         heavy.to(torch.int64).contiguous())
 
 def _into(out: Optional[torch.Tensor], res: torch.Tensor) -> torch.Tensor:
     if out is None:
@@ -114,7 +150,11 @@ def launch_counts() -> dict:
             "rle_expand": decode.RLE_LAUNCHES,
             "delta_unpack": decode.DELTA_LAUNCHES,
             "bitunpack": decode.BITUNPACK_LAUNCHES,
-            "dict_gather": decode.DICT_LAUNCHES}
+            "dict_gather": decode.DICT_LAUNCHES,
+            "member_mask": shuffle_pack.MEMBER_LAUNCHES,
+            "pack_rows": shuffle_pack.PACK_LAUNCHES,
+            "unpack_cols": shuffle_pack.UNPACK_LAUNCHES,
+            "replicate_scatter": shuffle_pack.REPL_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -125,3 +165,7 @@ def reset_launch_counts() -> None:
     decode.DELTA_LAUNCHES = 0
     decode.BITUNPACK_LAUNCHES = 0
     decode.DICT_LAUNCHES = 0
+    shuffle_pack.MEMBER_LAUNCHES = 0
+    shuffle_pack.PACK_LAUNCHES = 0
+    shuffle_pack.UNPACK_LAUNCHES = 0
+    shuffle_pack.REPL_LAUNCHES = 0

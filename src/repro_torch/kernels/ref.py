@@ -62,6 +62,54 @@ def gather_rows_ref(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[:, None], g, torch.zeros_like(g))
 
 
+
+# ---------------------------------------------------------------------------
+# packed shuffle (repro.kernels.ref pack_rows_ref .. member_mask_ref)
+# ---------------------------------------------------------------------------
+
+def _masked_rows(values: torch.Tensor, src: torch.Tensor,
+                 good: torch.Tensor) -> torch.Tensor:
+    r = values.shape[0]
+    if r == 0:
+        return torch.zeros((src.shape[0],) + tuple(values.shape[1:]),
+                           dtype=values.dtype, device=values.device)
+    g = values[src.clamp(0, r - 1)]
+    return torch.where(good[:, None], g, torch.zeros_like(g))
+
+
+def pack_rows_ref(values: torch.Tensor, idx: torch.Tensor,
+                  ok: torch.Tensor) -> torch.Tensor:
+    """Masked row gather that fills the packed shuffle send buffer:
+    slots with ``ok`` False or an index outside [0, r) come back 0."""
+    idx = idx.to(torch.int64)
+    good = ok.to(torch.bool) & (idx >= 0) & (idx < values.shape[0])
+    return _masked_rows(values, idx, good)
+
+
+def replicate_scatter_ref(values: torch.Tensor, vidx: torch.Tensor,
+                          ok: torch.Tensor, repl: int) -> torch.Tensor:
+    """``pack_rows_ref`` over VIRTUAL row ids: slot j receives source row
+    ``vidx[j] // repl`` (each source row has ``repl`` virtual replicas).
+    Slots with ``ok`` False, a negative id or a source row out of range
+    come back 0."""
+    vidx = vidx.to(torch.int64)
+    src = vidx // int(repl)
+    good = ok.to(torch.bool) & (vidx >= 0) & (src < values.shape[0])
+    return _masked_rows(values, src, good)
+
+
+def unpack_cols_ref(buf: torch.Tensor) -> torch.Tensor:
+    """(rows, lanes) wire buffer to contiguous (lanes, rows) columns."""
+    return buf.t().contiguous()
+
+
+def member_mask_ref(keys: torch.Tensor, heavy: torch.Tensor
+                    ) -> torch.Tensor:
+    """Per-key membership in the padded heavy-key set; INT64_MAX never
+    matches, as a key or as a heavy slot. The set need not be sorted."""
+    hit = (keys[:, None] == heavy[None, :]) & (heavy[None, :] != I64_MAX)
+    return hit.any(dim=1) & (keys != I64_MAX)
+
 # ---------------------------------------------------------------------------
 # compressed-chunk decode (repro.kernels.ref rle_expand_ref .. dict_gather_ref)
 # ---------------------------------------------------------------------------

@@ -89,6 +89,5 @@ def segment_sum_first_cuda(values: torch.Tensor, keys: torch.Tensor,
                  fvals.data_ptr(), seg_end.data_ptr(), long_list.data_ptr(),
                  n_long.data_ptr(), build.stream_handle(dev))
     build.check(err, "segment_sum_first")
-    global LAUNCHES
-    LAUNCHES += 1
+    build.bump(globals(), "LAUNCHES")
     return sums, fidx, fvals

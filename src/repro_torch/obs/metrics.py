@@ -38,11 +38,38 @@ keys can no longer leak across runs with different mesh sizes.
 from __future__ import annotations
 
 import math
+import threading
 from contextlib import contextmanager
 from typing import Dict, Iterator, Optional, Tuple
 
 _HIST_GAMMA = 2.0 ** 0.125           # bucket growth; rel. err <= ~4.4%
 _LOG_GAMMA = math.log(_HIST_GAMMA)
+
+
+
+_HOST = threading.local()
+
+
+def host_recording() -> bool:
+    """Whether this thread records host-side telemetry: counters,
+    gauges, histograms, spans and fault-site calls. Always true outside
+    the virtual mesh (``exec.dist``). Its sites run on threads of their
+    own, where only site 0 of a compile attempt records, since the
+    reference records these once, when it traces the per-partition
+    code for all devices; a warm call records nothing, as a warm jitted
+    call does not trace."""
+    return getattr(_HOST, "on", True)
+
+
+@contextmanager
+def host_recording_as(on: bool):
+    """Set this thread's ``host_recording()`` inside the block."""
+    prev = getattr(_HOST, "on", True)
+    _HOST.on = bool(on)
+    try:
+        yield
+    finally:
+        _HOST.on = prev
 
 
 class Histogram:
@@ -108,16 +135,20 @@ class MetricsRegistry:
 
     # -- counters / gauges ------------------------------------------------
     def inc(self, name: str, n: float = 1) -> None:
-        self._values[name] = self._values.get(name, 0) + n
+        if host_recording():
+            self._values[name] = self._values.get(name, 0) + n
 
     def set_gauge(self, name: str, value: float) -> None:
-        self._values[name] = value
+        if host_recording():
+            self._values[name] = value
 
     def get(self, name: str, default=0):
         return self._values.get(name, default)
 
     # -- histograms -------------------------------------------------------
     def observe(self, name: str, value: float) -> None:
+        if not host_recording():
+            return
         h = self._hists.get(name)
         if h is None:
             h = self._hists[name] = Histogram()
@@ -212,7 +243,8 @@ class CounterView:
         return self._reg._values[full]
 
     def __setitem__(self, key: str, value) -> None:
-        self._reg._values[self._pre + key] = value
+        if host_recording():
+            self._reg._values[self._pre + key] = value
 
     def __delitem__(self, key: str) -> None:
         del self._reg._values[self._pre + key]

@@ -32,6 +32,8 @@ import time
 from contextlib import contextmanager
 from typing import List, Optional
 
+from .metrics import host_recording
+
 
 class Span:
     __slots__ = ("name", "attrs", "t0", "dur", "children")
@@ -184,8 +186,9 @@ _NOOP = _NoopSpan()
 
 
 def span(name: str, **attrs):
-    """Open a span on the process tracer (no-op when disabled)."""
-    if not TRACER.enabled:
+    """Open a span on the process tracer (no-op when disabled, and on a
+    thread that does not record: see ``metrics.host_recording``)."""
+    if not TRACER.enabled or not host_recording():
         return _NOOP
     return _SpanCtx(name, attrs)
 

@@ -1,5 +1,5 @@
 """QueryService — a parameterized plan-cache front end for the
-whole-program shredded compiler (PyTorch twin of the local half of
+whole-program shredded compiler (PyTorch twin of
 ``repro.serve.query_service``; DESIGN.md "Whole-program compilation and
 the query service").
 
@@ -21,7 +21,22 @@ three-part cache key:
     every operator masks by validity).
 
 Misses compile via ``codegen.compile_program`` (cross-assignment CSE,
-dead-code elimination) into a single ``jit_program`` executable.
+dead-code elimination) into a single ``jit_program`` executable — or,
+with a mesh (``exec.dist.device_mesh_1d``), through
+``codegen.compile_program_distributed`` with the service's
+``dist_kwargs`` (``adaptive=True`` resolves exact exchange-bucket
+capacities before the warm runner is cached). On the distributed path
+the lifted constants are runtime parameters too, so dist submissions
+differing only in constants also hit one warm runner.
+
+**Automated skew handling**: with ``skew_mode="auto"`` the compiler
+inserts ``SkewJoinP`` nodes wherever heavy-hitter statistics predict
+partition imbalance over ``skew_partitions`` (default: the mesh size) —
+from a stored dataset's persisted sketches (``execute_stored``), or from
+caller-supplied ``skew_hints`` ({bag: {column: heavy keys}}). The
+heavy-key sets ride as runtime parameters: the cache key carries only
+the hint *shape*, so a warm call with a DIFFERENT heavy-key set rebinds
+with zero retraces, exactly like ``N.Param`` constants.
 
 Stored datasets (``storage.StoredDataset``) serve through
 ``execute_stored`` — one warm plan, zone maps re-selecting chunks per
@@ -29,12 +44,9 @@ parameter binding — and ``execute_stored_streaming``, which runs the
 same executable once per morsel window and re-folds the partial
 outputs (``plans.morsel_fold``).
 
-What waits for later slices, and raises ``NotImplementedError`` naming
-its ROADMAP.md item: a ``mesh`` or ``dist_kwargs`` (queue 1 items 5
-and 7), ``execute_many`` (item 7), ``skew_partitions > 1`` and
-``cost_mode="auto"`` (item 4), and ``feedback`` (item 7). With one
-partition the skew pass never runs, so ``skew_hints`` only join the
-cache key, as their shape does in the reference.
+What waits for a later slice, and raises ``NotImplementedError`` naming
+its ROADMAP.md item: ``execute_many`` and ``feedback`` (queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ from repro_torch.core import materialization as M
 from repro_torch.core import nrc as N
 from repro_torch.core.plans import ExecSettings
 from repro_torch.core.unnesting import Catalog
+from repro_torch.errors import CapacityOverflowError
 from repro_torch.obs.trace import span as _span
 
 
@@ -78,7 +91,7 @@ class CacheEntry:
     cp: CG.CompiledProgram
     sp: M.ShreddedProgram
     exe: Optional[CG.ProgramExecutable]      # local path
-    runner: Optional[object]                 # dist path (queue 1 item 5)
+    runner: Optional[object]                 # dist path (DistRunner)
     param_names: tuple
     class_caps: Dict[str, int]
     hits: int = 0
@@ -96,7 +109,8 @@ class CacheEntry:
     @property
     def estimates(self) -> Dict[str, Optional[int]]:
         """Cost-based per-node root-row estimates, snapshotted at
-        compile time (empty until cost planning is ported)."""
+        compile time (``cost_mode="auto"``; empty otherwise). Warm
+        rebinds read this cached copy — no re-estimation."""
         return self.cp.estimates
 
 
@@ -108,10 +122,12 @@ def _unported(what: str, item: str) -> NotImplementedError:
 class QueryService:
     """Compile-once / serve-many front end. See module docstring.
 
-    Serves through the local single-executable path (parameter bindings
-    supported, capacity classes rounded to powers of two). The
-    arguments of the reference's distributed and statistics-driven
-    paths are kept; any value that would need them raises."""
+    ``mesh=None`` serves through the local single-executable path
+    (parameter bindings supported, capacity classes rounded to powers of
+    two); with a mesh (``exec.dist.device_mesh_1d``), programs compile
+    through the distributed scheduler, on the mesh's sites. The
+    reference's feedback loop (``feedback``) is not ported yet and
+    raises."""
 
     def __init__(self, input_types: Dict[str, N.BagT],
                  catalog: Optional[Catalog] = None,
@@ -128,32 +144,29 @@ class QueryService:
         assert skew_mode in ("auto", "off"), skew_mode
         assert hypercube_mode in ("auto", "off"), hypercube_mode
         assert cost_mode in ("auto", "off"), cost_mode
-        if mesh is not None or dist_kwargs:
-            raise _unported("distributed serving (mesh, dist_kwargs)",
-                            "items 5 and 7")
-        if skew_partitions is not None and skew_partitions > 1:
-            raise _unported(f"skew planning (skew_partitions="
-                            f"{skew_partitions})", "item 4")
         if feedback is not None:
             raise _unported("the stats feedback loop (feedback)", "item 7")
-        if cost_mode == "auto":
-            raise _unported("cost-based planning (cost_mode='auto')",
-                            "item 4")
         self.input_types = dict(input_types)
         self.catalog = catalog or Catalog()
         self.settings = settings or ExecSettings()
         self.domain_elim = domain_elimination
+        self.mesh = mesh
+        self.dist_kwargs = dict(dist_kwargs or {})
         self.max_entries = max_entries
         self.skew_mode = skew_mode
         self.hypercube_mode = hypercube_mode
         self.cost_mode = cost_mode
         self.skew_threshold = skew_threshold
-        # a single partition can never be imbalanced: the skew pass is
-        # off (statistics are None on every compile)
-        self.skew_partitions = 1
+        # imbalance is judged against the partition count queries will
+        # actually run over: the mesh size, unless pinned explicitly
+        # (a single partition can never be imbalanced -> pass disabled)
+        self.skew_partitions = skew_partitions if skew_partitions \
+            else (mesh.size if mesh is not None else 1)
         self._cache: "OrderedDict[tuple, CacheEntry]" = OrderedDict()
         self.stats = {"hits": 0, "misses": 0, "evictions": 0,
                       "batch_calls": 0}
+        # shuffle/overflow metrics of the most recent dist execute
+        self.last_metrics: Optional[dict] = None
 
     # -- ingestion helper --------------------------------------------------
     def shred_inputs(self, inputs: Dict[str, list],
@@ -168,7 +181,8 @@ class QueryService:
     @staticmethod
     def _skew_shape(skew_hints: Optional[dict]) -> tuple:
         """Structural component of a hint set: WHICH (bag, column)
-        pairs carry a heavy-key set — never the key values."""
+        pairs carry a heavy-key set — never the key values, which are
+        runtime parameter bindings."""
         if not skew_hints:
             return ()
         return tuple(sorted((bag, col) for bag, cols in skew_hints.items()
@@ -184,16 +198,70 @@ class QueryService:
         schema = []
         for name in sorted(env):
             bag = env[name]
-            cap = _class_capacity(bag.capacity)
+            cap = bag.capacity if self.mesh is not None \
+                else _class_capacity(bag.capacity)
             class_caps[name] = cap
             schema.append((name, cap,
                            tuple((c, str(bag.data[c].dtype))
                                  for c in bag.columns)))
-        key = (prog_fp, tuple(schema), "local",
+        key = (prog_fp, tuple(schema),
+               "dist" if self.mesh is not None else "local",
                ("skew",) + self._skew_shape(skew_hints))
         return key, lifted, values, class_caps
 
     # -- cache management --------------------------------------------------
+    @staticmethod
+    def _valid_rows(b: FlatBag) -> int:
+        """Host-side valid-row count of an in-memory bag (compile time
+        only, on the cold cache miss): the pow2 capacity class can
+        overestimate live rows by ~2x, which would bias share planning
+        and the skew threshold."""
+        return int(b.valid.sum())
+
+    def _hint_stats(self, skew_hints: Optional[dict],
+                    env_c: Dict[str, FlatBag]) -> Optional[dict]:
+        """Caller-supplied heavy-key hints as planner statistics: every
+        hinted key counts as definitely-heavy (count == rows), so the
+        automatic pass inserts a SkewJoinP at exactly the hinted
+        joins. On the distributed path, every environment bag also
+        contributes a row estimate (its VALID rows, counted host-side
+        at compile time), so the HyperCube share planner and the cost
+        estimator can cost multiway chains over in-memory inputs that
+        have no persisted sketches."""
+        if self.skew_mode == "off" or self.skew_partitions <= 1:
+            return None
+        want_hc = self.mesh is not None and self.hypercube_mode == "auto"
+        if not skew_hints and not want_hc and self.cost_mode != "auto":
+            return None
+        from repro_torch.core.skew import TableStats
+        stats = {}
+        if want_hc or self.cost_mode == "auto":
+            for bag, b in env_c.items():
+                stats[bag] = TableStats(rows=self._valid_rows(b))
+        for bag, cols in (skew_hints or {}).items():
+            rows = self._valid_rows(env_c[bag]) if bag in env_c else 1
+            ts = stats.get(bag) or TableStats(rows=rows)
+            ts.heavy = {col: [(int(k), rows) for k in list(ks)]
+                        for col, ks in cols.items()}
+            stats[bag] = ts
+        return stats
+
+    def _skew_binds(self, cp: CG.CompiledProgram,
+                    skew_hints: Optional[dict]) -> Dict[str, object]:
+        """Warm-call heavy-key rebinding: hint values for the (bag,
+        column) pairs the compiled plan lifted as skew parameters.
+        Hints beyond the static MAX_HEAVY bound truncate, mirroring
+        the compile-time decision (`decide_heavy_keys` keeps 40)."""
+        if not skew_hints or not cp.skew_params:
+            return {}
+        from repro_torch.core.skew import MAX_HEAVY, pad_heavy
+        out = {}
+        for name, (bag, attr) in cp.skew_params.items():
+            ks = (skew_hints.get(bag) or {}).get(attr)
+            if ks is not None:
+                out[name] = pad_heavy(list(ks)[:MAX_HEAVY])
+        return out
+
     def _lookup(self, program: N.Program, env: Dict[str, FlatBag],
                 skew_hints: Optional[dict] = None
                 ) -> Tuple[CacheEntry, Dict[str, object],
@@ -208,9 +276,15 @@ class QueryService:
             self._touch(key, entry)
         else:
             entry = self._remember(key, self._compile(
-                key, lifted, class_caps, len(values)))
+                key, lifted, env_c, class_caps, len(values),
+                skew_stats=self._hint_stats(skew_hints, env_c)))
         params = {f"__p{i}": v for i, v in enumerate(values)}
+        params.update(self._skew_binds(entry.cp, skew_hints))
         return entry, params, env_c
+
+    def is_warm(self, key: tuple) -> bool:
+        """True when ``key`` is cached (no stats / LRU side effects)."""
+        return key in self._cache
 
     def evict(self, key: Optional[tuple] = None) -> int:
         """Drop one cached entry (or all with ``key=None``); returns
@@ -236,11 +310,13 @@ class QueryService:
             self.stats["evictions"] += 1
         return entry
 
-    def _compile_cp(self, lifted: N.Program
+    def _compile_cp(self, lifted: N.Program,
+                    skew_stats: Optional[dict] = None
                     ) -> Tuple[M.ShreddedProgram, CG.CompiledProgram]:
         sp = M.shred_program(lifted, self.input_types,
                              domain_elimination=self.domain_elim)
         cp = CG.compile_program(sp, self.catalog,
+                                skew_stats=skew_stats,
                                 skew_mode=self.skew_mode,
                                 skew_partitions=self.skew_partitions,
                                 skew_threshold=self.skew_threshold,
@@ -249,11 +325,20 @@ class QueryService:
         return sp, cp
 
     def _compile(self, key: tuple, lifted: N.Program,
+                 env_c: Dict[str, FlatBag],
                  class_caps: Dict[str, int],
-                 n_params: int = 0) -> CacheEntry:
-        with _span("query.compile", path="local",
+                 n_params: int = 0,
+                 skew_stats: Optional[dict] = None) -> CacheEntry:
+        with _span("query.compile",
+                   path="dist" if self.mesh is not None else "local",
                    assignments=len(lifted.assignments)):
-            sp, cp = self._compile_cp(lifted)
+            sp, cp = self._compile_cp(lifted, skew_stats)
+            if self.mesh is not None:
+                runner, _, _ = CG.compile_program_distributed(
+                    cp, env_c, self.mesh,
+                    use_kernel=self.settings.use_kernel, **self.dist_kwargs)
+                return CacheEntry(key, cp, sp, None, runner, (),
+                                  dict(class_caps))
             return self._local_entry(key, sp, cp, class_caps, n_params)
 
     def _local_entry(self, key: tuple, sp: M.ShreddedProgram,
@@ -276,7 +361,13 @@ class QueryService:
         manifest top + dictionary). Warm path: cache hit, parameter
         rebind, no shredding, plan passes or plan rebuild. ``env`` is
         either an environment of FlatBags or a persisted
-        ``storage.StoredDataset`` (routed through ``execute_stored``)."""
+        ``storage.StoredDataset`` (routed through ``execute_stored``).
+
+        ``skew_hints`` ({bag: {column: heavy-key iterable}}) marks
+        probe-side columns whose heavy keys should take the broadcast
+        path. The hint SHAPE joins the cache key; the key VALUES are
+        runtime parameters — warm calls may supply a different set per
+        call with zero retracing."""
         if hasattr(env, "load_env"):       # storage.StoredDataset
             return self.execute_stored(program, env,
                                        skew_hints=skew_hints)
@@ -284,9 +375,37 @@ class QueryService:
             "QueryService.execute received a lazy StorageEnv; pass the "
             "StoredDataset itself (execute / execute_stored), or run "
             "the eager path via codegen.run_flat_program")
-        with _span("query.execute", path="local"):
-            entry, params, env_c = self._lookup(program, env, skew_hints)
-            return entry.exe(env_c, params)
+        with _span("query.execute",
+                   path="dist" if self.mesh is not None else "local"):
+            return self._execute(program, env, skew_hints)
+
+    def _execute(self, program: N.Program, env,
+                 skew_hints: Optional[dict]) -> Dict[str, FlatBag]:
+        entry, params, env_c = self._lookup(program, env, skew_hints)
+        if entry.runner is not None:
+            rp = entry.runner.params or {}
+            bound = {k: v for k, v in params.items() if k in rp}
+            out, metrics = entry.runner(env_c, params=bound)
+            self.last_metrics = metrics
+            # a rebind that SHRINKS the warm heavy-key set can push a
+            # hot key back through an exchange bucket the adaptive
+            # warmup sized without it; the raw runner meters that as
+            # overflow (the skew safety valve), but a serving layer
+            # must not silently truncate — fail loudly, re-warm with
+            # the new set instead
+            if entry.cp.skew_params and any(k in entry.cp.skew_params
+                                            for k in bound):
+                lost = metrics.get("overflow_rows", 0) \
+                    + metrics.get("compact_dropped_rows", 0)
+                if lost:
+                    raise CapacityOverflowError(
+                        f"heavy-key rebind overflowed warm capacities "
+                        f"({lost} rows dropped); the adaptive sizes "
+                        f"were resolved for the warmup heavy-key set — "
+                        f"grow the set, or re-warm the entry for the "
+                        f"new one")
+            return out
+        return entry.exe(env_c, params)
 
     def execute_many(self, programs: Sequence[N.Program],
                      env: Dict[str, FlatBag]) -> List[Dict[str, FlatBag]]:
@@ -309,12 +428,32 @@ class QueryService:
                ("skew",) + self._skew_shape(skew_hints))
         return key, lifted, values
 
+    def _stored_skew_stats(self, dataset,
+                           skew_hints: Optional[dict]) -> Optional[dict]:
+        """Planner statistics for a stored dataset: the persisted
+        streaming sketches + zone-map distinct counts, overridden by
+        any caller hints (hinted keys count as definitely heavy)."""
+        if self.skew_mode == "off" or self.skew_partitions <= 1:
+            return None
+        from repro_torch.core.skew import TableStats
+        from repro_torch.storage import table_stats
+        stats = table_stats(dataset)
+        for bag, cols in (skew_hints or {}).items():
+            rows = dataset.parts[bag].rows if bag in dataset.parts else 1
+            ts = stats.get(bag) or TableStats(rows=rows)
+            for col, ks in cols.items():
+                ts.heavy[col] = [(int(k), max(rows, 1)) for k in list(ks)]
+            stats[bag] = ts
+        return stats
+
     def _lookup_stored(self, program: N.Program, dataset,
                        skew_hints: Optional[dict] = None,
                        no_skip: bool = False, verify: bool = False
                        ) -> Tuple[CacheEntry, Dict[str, object],
                                   Dict[str, FlatBag]]:
         from repro_torch.storage import storage_requirements
+        assert self.mesh is None, (
+            "storage-backed serving is a local-path feature")
         key, lifted, values = self.fingerprint_stored(program, dataset,
                                                       skew_hints)
         entry = self._cache.get(key)
@@ -323,7 +462,8 @@ class QueryService:
         else:
             with _span("query.compile", path="stored",
                        assignments=len(lifted.assignments)):
-                sp, cp = self._compile_cp(lifted)
+                sp, cp = self._compile_cp(
+                    lifted, self._stored_skew_stats(dataset, skew_hints))
                 req = storage_requirements(cp, set(dataset.parts))
                 # capacities pin to the FULL part's class regardless of
                 # the per-call chunk selection, so the executable's input
@@ -334,6 +474,7 @@ class QueryService:
                     key, sp, cp, class_caps, len(values),
                     storage_req=req))
         params = {f"__p{i}": v for i, v in enumerate(values)}
+        params.update(self._skew_binds(entry.cp, skew_hints))
         env = dataset.load_env(
             columns={p: r.columns for p, r in entry.storage_req.items()},
             preds=None if no_skip else
@@ -370,6 +511,8 @@ class QueryService:
         from repro_torch.core.plans import morsel_fold
         from repro_torch.storage import storage_requirements
         from repro_torch.storage.morsel import plan_morsels
+        assert self.mesh is None, (
+            "storage-backed serving is a local-path feature")
         base, lifted, values = self.fingerprint_stored(program, dataset,
                                                        skew_hints)
         key = base + (("morsel", root, int(morsel_rows)),)
@@ -377,7 +520,8 @@ class QueryService:
         if entry is not None:
             self._touch(key, entry)
         else:
-            sp, cp = self._compile_cp(lifted)
+            sp, cp = self._compile_cp(
+                lifted, self._stored_skew_stats(dataset, skew_hints))
             req = storage_requirements(cp, set(dataset.parts))
             mp = plan_morsels(dataset, root, morsel_rows)
             folds = morsel_fold(cp.plans, cp.outputs, set(mp.parts))
@@ -394,6 +538,7 @@ class QueryService:
                 key, sp, cp, class_caps, len(values), storage_req=req))
             entry.morsel = (mp, folds)
         params = {f"__p{i}": v for i, v in enumerate(values)}
+        params.update(self._skew_binds(entry.cp, skew_hints))
         return entry, params
 
     def execute_stored_streaming(self, program: N.Program, dataset,
@@ -484,7 +629,9 @@ class QueryService:
 
     def warmup(self, program: N.Program, env: Dict[str, FlatBag],
                skew_hints: Optional[dict] = None) -> Dict[str, FlatBag]:
-        """Populate the cache by running the program once."""
+        """Populate the cache (and, on the dist path, resolve adaptive
+        capacities — pass ``dist_kwargs=dict(adaptive=True)``) by
+        running the program once."""
         return self.execute(program, env, skew_hints=skew_hints)
 
     # -- results -----------------------------------------------------------

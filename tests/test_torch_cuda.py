@@ -30,6 +30,7 @@ from repro_torch.obs import reset_telemetry  # noqa: E402
 
 KERNELS = ["segment_sum_first", "merge_positions", "gather_rows"]
 DECODE = ["rle_expand", "delta_unpack", "bitunpack", "dict_gather"]
+SHUFFLE = ["member_mask", "pack_rows", "unpack_cols", "replicate_scatter"]
 
 
 @pytest.fixture(autouse=True)
@@ -295,3 +296,115 @@ def test_stored_path_on_card_equals_port_on_cpu(cuda, tmp_path):
         chip_smoke.bags_bit_equal(cpu[0][name], host, name)
         assert torch.equal(chip_smoke.sorted_rows(gpu[1][name]).cpu(),
                            chip_smoke.sorted_rows(cpu[1][name])), name
+
+
+# ---------------------------------------------------------------------------
+# the packed-shuffle kernels and the distributed route
+# ---------------------------------------------------------------------------
+
+def shuffle_sweep_args(name, seed, dev):
+    """Random dispatch arguments for a packed-shuffle kernel at the sizes
+    of ``test_kernels.py``'s sweeps (tensors on ``dev``)."""
+    rng = np.random.RandomState(seed)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    r, m, d = (int(rng.randint(1, 60)), int(rng.randint(1, 80)),
+               int(rng.randint(1, 6)))
+    vals = rng.randint(-2 ** 62, 2 ** 62, size=(r, d)).astype(np.int64)
+    ok = rng.randint(0, 2, m).astype(bool)
+    if name == "unpack_cols":
+        return (T(vals),)
+    if name == "member_mask":
+        keys = rng.randint(-40, 40, m).astype(np.int64)
+        keys[::5] = np.iinfo(np.int64).max
+        heavy = np.full(40, np.iinfo(np.int64).max, np.int64)
+        heavy[:seed * 3] = rng.randint(-40, 40, seed * 3)
+        rng.shuffle(heavy)
+        return T(keys), T(heavy)
+    if name == "pack_rows":
+        idx = rng.randint(-3, r + 3, m).astype(np.int32)
+        return T(vals), T(idx), T(ok)
+    repl = seed + 1
+    vidx = rng.randint(-3, r * repl + 5, m).astype(np.int32)
+    return T(vals), T(vidx), T(ok), repl
+
+
+@pytest.mark.cuda
+def test_shuffle_edge_cases_bit_exact(cuda):
+    for name, args in chip_smoke.shuffle_edge_cases(cuda, large=True):
+        kern, plain_fn, _, _ = chip_smoke.kernel_fns(name, args)
+        assert chip_smoke.max_abs_err(kern(), plain_fn()) == 0.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SHUFFLE)
+@pytest.mark.parametrize("seed", range(4))
+def test_shuffle_sweep_bit_exact_and_counted(cuda, name, seed):
+    args = shuffle_sweep_args(name, seed, cuda)
+    _, plain_fn, _, _ = chip_smoke.kernel_fns(name, args)
+    before = TK.launch_counts()[name]
+    got = getattr(TK, name)(*args)
+    assert TK.launch_counts()[name] == before + 1
+    assert_bits_equal(to_np(got), to_np(plain_fn()))
+
+
+@pytest.mark.cuda
+def test_shuffle_wrappers_check_inputs(cuda):
+    from repro_torch.kernels import shuffle_pack as TS
+    v = torch.zeros((4, 2), dtype=torch.int64, device=cuda)
+    i = torch.zeros(4, dtype=torch.int32, device=cuda)
+    ok = torch.ones(4, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        TS.pack_rows_cuda(v.double(), i, ok)
+    with pytest.raises(TypeError):
+        TS.pack_rows_cuda(v, i.double(), ok)
+    with pytest.raises(ValueError):
+        TS.pack_rows_cuda(v, i, ok[:3])
+    with pytest.raises(ValueError):
+        TS.replicate_scatter_cuda(v, i, ok, 0)
+    with pytest.raises(TypeError):
+        TS.unpack_cols_cuda(v.t())
+    with pytest.raises(ValueError):
+        TS.member_mask_cuda(v[:, 0].cpu(), v[:, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", [False, True])
+def test_distributed_running_example_kernels_equal_plain(cuda, skew):
+    """The running example over 8 sites on the card: use_kernel=True is
+    bit-equal to use_kernel=False, and the shuffle kernels launched."""
+    from repro_torch.core import codegen as CG
+    from repro_torch.core import materialization as M
+    from repro_torch.core import nrc as N
+    from repro_torch.core.plans import ExecSettings
+    from repro_torch.core.unnesting import Catalog
+    from repro_torch.exec.dist import device_mesh_1d, run_distributed
+    env_np = chip_smoke.shred_ncop2(chip_smoke.gen_tpch_columns(4000, 2,
+                                                                2.0))
+    part_t, ncop2_t = chip_smoke.tpch_types()
+    q = chip_smoke.nested_to_nested_query(2, "NCOP2", ncop2_t, part_t)
+    sp = M.shred_program(N.Program([N.Assignment("Q", q)]),
+                         {"NCOP2": ncop2_t, "Part": part_t},
+                         domain_elimination=True)
+    cp = CG.compile_program(sp, Catalog(unique_keys={"Part__F": ("pid",)}))
+    from repro_torch.columnar.table import env_from_numpy
+    env = chip_smoke.pad_sites(env_from_numpy(env_np, cuda))
+    outs = {}
+    for kernel in (True, False):
+        def fn(env_local, ctx):
+            return CG.run_flat_program(cp, env_local,
+                                       ExecSettings(dist=ctx,
+                                                    use_kernel=kernel))
+        TK.reset_launch_counts()
+        outs[kernel] = run_distributed(fn, env, device_mesh_1d(8),
+                                       skew_default=skew, cap_factor=4.0,
+                                       use_kernel=kernel)
+        counts = TK.launch_counts()
+        if kernel:
+            assert counts["pack_rows"] > 0 and counts["unpack_cols"] > 0
+            assert counts["member_mask"] > 0 or not skew
+        else:
+            assert all(v == 0 for v in counts.values()), counts
+    assert outs[True][1] == outs[False][1]
+    for name in cp.outputs:
+        chip_smoke.bags_bit_equal(outs[True][0][name], outs[False][0][name],
+                                  name)

@@ -41,6 +41,8 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
         "import repro_torch.storage, repro_torch.serve\n"
         "import repro_torch.core.skew, repro_torch.storage.morsel\n"
+        "import repro_torch.exec.dist, repro_torch.core.cost\n"
+        "import repro_torch.kernels.shuffle_pack\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -123,20 +125,25 @@ def test_differential_texts_match_reference(shape):
 
 
 def test_unported_passes_raise_naming_the_roadmap():
+    """What is still to port raises naming its ROADMAP.md item; the
+    statistics-driven planning (item 4) and distributed execution
+    (item 5) are ported and no longer refuse."""
     from repro_torch.core.plans import ExecSettings, ScanP, eval_plan
+    from repro_torch.core.skew import TableStats
+    from repro_torch.exec.dist import device_mesh_1d
     from repro_torch.serve import QueryService
     fresh_start(TN)
     q, types = quickstart(TN)
     sp = TM.shred_program(TN.Program([TN.Assignment("Q", q)]), types,
                           domain_elimination=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        TCG.compile_program(sp, skew_stats={"COP__F": object()})
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        TCG.compile_program(sp, cost_mode="auto")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        QueryService(types, skew_partitions=8)
+    TCG.compile_program(sp, skew_stats={"COP__F": TableStats(rows=8)})
+    TCG.compile_program(sp, cost_mode="auto")
+    QueryService(types, skew_partitions=8,
+                 mesh=device_mesh_1d(8, device="cpu"))
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         QueryService(types).execute_many(
             [TN.Program([TN.Assignment("Q", q)])], {})
-    with pytest.raises(NotImplementedError, match="queue 1 items 5"):
-        eval_plan(ScanP("COP__F", "c"), {}, ExecSettings(dist=object()))
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        QueryService(types, feedback=object())
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        eval_plan(ScanP("COP__F", "c"), {}, ExecSettings(explain=object()))

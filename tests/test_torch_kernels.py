@@ -90,7 +90,8 @@ def test_dispatch_counts_only_launches_and_refuses_other_devices():
     assert TK.launch_counts() == {
         "segment_sum_first": 0, "merge_positions": 0, "gather_rows": 0,
         "rle_expand": 0, "delta_unpack": 0, "bitunpack": 0,
-        "dict_gather": 0}
+        "dict_gather": 0, "member_mask": 0, "pack_rows": 0,
+        "unpack_cols": 0, "replicate_scatter": 0}
     meta = torch.zeros(4, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="meta"):
         TK.merge_positions(meta, meta)
