@@ -79,12 +79,46 @@ if anything is wrong or if there is no CUDA device. Phases:
                other kernel bit-exact at its largest captured call. G
                alone runs with expandable allocator segments: its
                cascade peaks near the card's 80 GB.
+  H fig7       the paper's Fig. 7 (repro_torch.figures.tpch_nested's
+               points) at the SF1 order count: f2n, n2n and n2f at levels
+               1-3, each through the shredded route (jit_program; n2f
+               sums its body with sum_by), the standard route
+               (run_standard) and, for f2n, the UNSHRED extra, with
+               use_kernel=True: cold and warm wall time, peak memory,
+               part bytes, launches; each route bit-equal to its
+               use_kernel=False run (n2f: equal to a numpy float64
+               group-by without kernels, within the f32 bound with them);
+               the two routes give the same nested value (a hash of each
+               bag, bottom-up), except where the reference's standard
+               route drops rows (f2n levels 2-3: reported); a profile of
+               the slowest standard-route point. Then n2n level 2's
+               standard route beside its shredded route at the SF5 order
+               count: at SF10 it needs more than the card's 80 GB;
+  I bio        the Fig. 9 pipeline (repro_torch.figures.biomedical's four
+               assignments) shredded at 10 samples x 20,000 genes, drawn
+               in bulk from gen_biomedical's distributions, with
+               use_kernel=True: cold and warm, peak, launches; the
+               result within the f32 bound of the use_kernel=False run;
+               then the figure driver at gen_biomedical(10, 30) against
+               the interpreter. More samples do not fit: every general
+               join sizes its output at 4x its larger input, and the
+               pipeline chains five of them;
+  J repr       App. E.1: row-wise dict aggregation over 2^20 rows against
+               the columnar sum_by over 2^26 rows, per row; then
+               segment_reduce through its dispatch at (a) 2^26 rows over
+               858,994 segments (the reference's 20,000 rows per 256
+               groups, scaled) and (b) SF10's 60,013,298 lineitems by
+               their 7,500,000 parts, d = 1 and 4: every launch counter
+               zeroed first; bit-exact against the plain version on
+               integer values, within 2 n_s 2^-24 sum|x| of a float64 sum
+               on random ones with two launches bit-identical; timed.
 
 The last three lines: nvidia-smi's name and power limit, the per-kernel
 JSON records (phase B's join kernels; D0's decode kernels with D's
 launch counts, bitunpack's from D0 since no column of this data picks
 bitpack; F's member_mask, pack_rows and unpack_cols; G's
-replicate_scatter), and ``{"ok": true, "device": ...}``.
+replicate_scatter; J's segment_reduce at (a) and at (b) with d = 4), and
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -110,6 +144,11 @@ SCALE_C = 1_500_000            # orders in phase C: TPC-H SF1
 SCALE_D = 15_000_000           # orders in phases D and E: TPC-H SF10
 SCALE_F = 15_000_000           # orders in phases F and G: TPC-H SF10
 SCALE_F_OFF = 1_500_000        # orders of F's `off` plan: TPC-H SF1
+SCALE_H = 1_500_000            # orders of phase H's Fig. 7 grid: TPC-H SF1
+SCALE_H_STD = 7_500_000        # orders of H's n2n L2 standard route: SF5
+#                                (SF10 needs about 134 GiB: PERF.md, section 4)
+BIO_SAMPLES = 10               # phase I: cut from 1,000 (PERF.md, section 4)
+BIO_GENES = 20_000             # phase I: about the human protein-coding genes
 ZIPF = 2.0                     # Zipf exponent of Lineitem.pid in F and G
 SITES = 8                      # sites of the virtual mesh in F and G
 CHUNK_ROWS = 1 << 20           # rows per stored chunk (and per morsel):
@@ -117,6 +156,9 @@ CHUNK_ROWS = 1 << 20           # rows per stored chunk (and per morsel):
 I64_MAX = np.iinfo(np.int64).max
 
 KERNELS = {
+    "segment_reduce": dict(
+        source="src/repro_torch/kernels/csrc/segment_reduce.cu",
+        replaces="src/repro/kernels/segment_reduce.py:52"),
     "segment_sum_first": dict(
         source="src/repro_torch/kernels/csrc/segment_fused.cu",
         replaces="src/repro/kernels/segment_fused.py:71"),
@@ -176,40 +218,11 @@ def tpch_types():
     return part_t, ncop2_t
 
 
-def nested_to_nested_query(levels: int, input_name: str, input_ty,
-                           part_t):
-    """Join Part at the lowest level + sumBy (Example 1 generalized)."""
-    from repro_torch.core import nrc as N
-    P = N.Var("Part", part_t)
-    X = N.Var(input_name, input_ty)
-
-    def agg(op_bag_holder):
-        inner = N.for_in("op", op_bag_holder, lambda op:
-            N.for_in("p", P, lambda p:
-                N.IfThen(op.pid.eq(p.pid),
-                         N.Singleton(N.record(pname=p.pname,
-                                              total=op.qty * p.price)))))
-        return N.SumBy(inner, keys=("pname",), values=("total",))
-
-    if levels == 1:
-        return N.for_in("x", X, lambda x: N.Singleton(N.record(
-            odate=x.odate, oparts=agg(x.oparts))))
-    if levels == 2:
-        return N.for_in("x", X, lambda x: N.Singleton(N.record(
-            cname=x.cname,
-            corders=N.for_in("co", x.corders, lambda co:
-                N.Singleton(N.record(odate=co.odate,
-                                     oparts=agg(co.oparts)))))))
-    if levels == 3:
-        return N.for_in("x", X, lambda x: N.Singleton(N.record(
-            nname=x.nname,
-            ncusts=N.for_in("c", x.ncusts, lambda c:
-                N.Singleton(N.record(
-                    cname=c.cname,
-                    corders=N.for_in("co", c.corders, lambda co:
-                        N.Singleton(N.record(odate=co.odate,
-                                             oparts=agg(co.oparts))))))))))
-    raise ValueError(levels)
+def nested_to_nested_query(levels: int, input_name: str, input_ty):
+    """Join Part at the lowest level + sumBy (Example 1 generalized):
+    ``repro_torch.figures.common``'s builder."""
+    from repro_torch.figures.common import nested_to_nested_query as build
+    return build(levels, input_name, input_ty)
 
 
 # ---------------------------------------------------------------------------
@@ -414,6 +427,8 @@ def kernel_fns(name: str, args: tuple):
                 lambda: (torch.searchsorted(sk, q, side="left"),
                          torch.searchsorted(sk, q, side="right")),
                 8 * r + 8 * n + 8 * n)
+    if name == "segment_reduce":
+        return reduce_fns(args)
     if name in DECODE_KERNELS:
         return decode_fns(name, args)
     if name in SHUFFLE_KERNELS:
@@ -431,6 +446,30 @@ def kernel_fns(name: str, args: tuple):
     return (lambda: G.gather_rows_cuda(vals, idx),
             lambda: R.gather_rows_ref(vals, idx), library,
             8 * n + 16 * n * d)
+
+
+def reduce_fns(args: tuple):
+    """``kernel_fns`` for segment_reduce. The byte bound counts what the
+    data needs: every id, the values of the rows whose id is in [0, S),
+    every output. The library call, ``torch.segment_reduce`` over the
+    run lengths (counted outside the timed call), exists where every id
+    is in range."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import segment_reduce as SR
+    vals, seg, S = args
+    vals = vals.to(torch.float32).contiguous()
+    seg = seg.to(torch.int32).contiguous()
+    n, d = vals.shape
+    ok = (seg >= 0) & (seg < S)
+    in_range = int(ok.sum())
+    library = None
+    if in_range == n and n and bool((seg[1:] >= seg[:-1]).all()):
+        lengths = torch.bincount(seg.to(torch.int64), minlength=S)
+        library = lambda: torch.segment_reduce(  # noqa: E731
+            vals, "sum", lengths=lengths, axis=0, unsafe=True)
+    return (lambda: SR.segment_reduce_cuda(vals, seg, S),
+            lambda: R.segment_reduce_ref(vals, seg, S), library,
+            4 * n + 4 * d * in_range + 4 * d * S)
 
 
 def decode_fns(name: str, args: tuple):
@@ -821,6 +860,47 @@ def edge_cases(dev, large: bool = True) -> list:
     return cases
 
 
+def reduce_edge_cases(dev, large: bool = True) -> list:
+    """(kernel name, dispatch arguments) for segment_reduce over the edge
+    cases that ``tests/test_torch_kernels.py`` also runs: empty tail
+    segments, n = 1, ids out of range at both ends, every row invalid,
+    more segments than rows, S = 0, n = 0, an out-of-range row between
+    two rows of one id (summed across), d > 1 (row-major). Values are
+    integer-valued, so every order of summation is exact. ``large`` adds
+    cases with tens of thousands of rows: ranges a thread, a warp and a
+    block sum, with out-of-range rows scattered among them."""
+    rng = np.random.RandomState(17)
+    T = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
+    cases = []
+
+    def case(seg, S, d):
+        seg = np.asarray(seg, np.int32)
+        vals = rng.randint(0, 100, (seg.shape[0], d)).astype(np.float32)
+        cases.append(("segment_reduce", (T(vals, torch.float32),
+                                         T(seg, torch.int32), S)))
+
+    for n, S, d, lo, hi in [(40, 50, 2, 0, 30),       # empty tail segments
+                            (1, 1, 1, 0, 0),          # n = 1
+                            (33, 7, 3, -2, 9),        # out of range at ends
+                            (5, 50, 3, 0, 49),        # more segments than rows
+                            (300, 120, 1, 0, 119),
+                            (400, 6, 4, -1, 6)]:
+        case(np.sort(rng.randint(lo, hi + 1, n)), S, d)
+    case(np.full(19, -1), 6, 2)                       # every row invalid
+    case(np.sort(rng.randint(0, 5, 10)), 0, 2)        # S = 0
+    case(np.zeros(0), 4, 3)                           # n = 0
+    case([0, 0, -1, 0, 1, 1, 7, 1, 2, -1], 3, 2)      # invalid between
+    if large:
+        for n, S, hi in [(70000, 70000, 30000),       # a thread per range
+                         (200000, 3000, 2999),        # a warp per range
+                         (70000, 100, 2)]:            # a block per range
+            seg = np.sort(rng.randint(0, hi + 1, n))
+            holes = rng.rand(n) < 0.05
+            seg[holes] = rng.choice([-1, S, S + 5], int(holes.sum()))
+            case(seg, S, 2)
+    return cases
+
+
 def decode_edge_cases(dev, large: bool = True) -> list:
     """(kernel name, dispatch arguments) for the decode kernels over the
     edge cases that ``tests/test_torch_decode.py`` also runs: n = 0,
@@ -974,8 +1054,8 @@ def phase_build() -> None:
 
 def phase_kernels(dev) -> None:
     n = 0
-    for name, args in edge_cases(dev) + decode_edge_cases(dev) \
-            + shuffle_edge_cases(dev):
+    for name, args in edge_cases(dev) + reduce_edge_cases(dev) \
+            + decode_edge_cases(dev) + shuffle_edge_cases(dev):
         kern, plain, _, _ = kernel_fns(name, args)
         err = max_abs_err(kern(), plain())
         torch.cuda.synchronize()
@@ -1059,7 +1139,7 @@ def phase_tpch(tag: str, scale: int, seed: int, domain_elimination: bool,
         f"{domain_elimination}: {sizes} (generated in "
         f"{time.perf_counter() - t0:.1f} s)")
     part_t, ncop2_t = tpch_types()
-    q = nested_to_nested_query(2, "NCOP2", ncop2_t, part_t)
+    q = nested_to_nested_query(2, "NCOP2", ncop2_t)
     sp = M.shred_program(N.Program([N.Assignment("Q", q)]),
                          {"NCOP2": ncop2_t, "Part": part_t},
                          domain_elimination=domain_elimination)
@@ -1189,7 +1269,7 @@ def phase_stored(seed: int, dev) -> list:
     types = {"NCOP2": ncop2_t, "Part": part_t}
     catalog = Catalog(unique_keys={"Part__F": ("pid",)})
     prog = N.Program([N.Assignment("Q", nested_to_nested_query(
-        2, "NCOP2", ncop2_t, part_t))])
+        2, "NCOP2", ncop2_t))])
     tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
     try:
         t0 = time.perf_counter()
@@ -1506,7 +1586,7 @@ def phase_skew(cols: dict, stats: dict, seed: int, dev) -> list:
     from repro_torch.exec.dist import device_mesh_1d
     types = skew_types()
     part_t, ncop2_t = types["Part"], types["NCOP2"]
-    q = nested_to_nested_query(2, "NCOP2", ncop2_t, part_t)
+    q = nested_to_nested_query(2, "NCOP2", ncop2_t)
     sp = M.shred_program(N.Program([N.Assignment("Q", q)]),
                          {"NCOP2": ncop2_t, "Part": part_t},
                          domain_elimination=True)
@@ -1618,13 +1698,14 @@ def revenue_by_date(env_np: dict):
             np.bincount(inv), np.bincount(inv, weights=np.abs(term)))
 
 
-def check_revenue(out_bag, want, exact: bool) -> float:
-    """The output's rows against ``revenue_by_date``: exactly, or within
-    the worst-case bound of an f32 sum of the group's terms,
-    n_g * 2^-24 * sum |x|. Returns the largest error over the bound."""
+def check_revenue(out_bag, want, exact: bool, key: str = "odate") -> float:
+    """The output's rows against ``revenue_by_date`` (or another group-by
+    on ``key`` with its return shape): exactly, or within the worst-case
+    bound of an f32 sum of the group's terms, n_g * 2^-24 * sum |x|.
+    Returns the largest error over the bound."""
     dates, total, n_g, abs_sum = want
     v = out_bag.valid.cpu().numpy()
-    got_d = out_bag.data["odate"].cpu().numpy()[v]
+    got_d = out_bag.data[key].cpu().numpy()[v]
     got_t = out_bag.data["total"].cpu().numpy()[v]
     order = np.argsort(got_d)
     assert np.array_equal(got_d[order], dates), (got_d.size, dates.size)
@@ -1727,6 +1808,633 @@ def phase_distributed(seed: int, dev) -> list:
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase H: Fig. 7, STANDARD vs SHRED (+UNSHRED)
+# ---------------------------------------------------------------------------
+
+def tpch_hierarchy(cols: dict, seed: int) -> dict:
+    """``gen_tpch_columns``' tables plus what Fig. 7's level 3 needs, with
+    ``gen_tpch``'s distributions: each customer's nation key uniform in
+    1..25 (drawn from a second stream, so the other columns stay those
+    of phases B-G), and the 25-row Nation table."""
+    rng = np.random.RandomState(seed + 1)
+    t = dict(cols)
+    t["cust_nid"] = rng.randint(1, 26, cols["cust_cname"].size).astype(
+        np.int64)
+    nid = np.arange(1, 26, dtype=np.int64)
+    t.update(nat_nid=nid, nat_rid=nid % 5 + 1, nat_nname=30000 + nid)
+    return t
+
+
+def _ones(n: int) -> np.ndarray:
+    return np.ones(n, dtype=np.bool_)
+
+
+def fig7_flat(t: dict) -> dict:
+    """The flat tables of Fig. 7's f2n family (and Part) as numpy
+    columns, named as ``columnar_shred_inputs`` names them."""
+    env = flat_tpch(t)
+    n_cust = t["cust_cname"].size
+    env["Customer__F"] = ({"cid": np.arange(1, n_cust + 1, dtype=np.int64),
+                           "nid": t["cust_nid"], "cname": t["cust_cname"]},
+                          _ones(n_cust))
+    env["Nation__F"] = ({"nid": t["nat_nid"], "rid": t["nat_rid"],
+                         "nname": t["nat_nname"]}, _ones(25))
+    return env
+
+
+def shred_nested(t: dict, levels: int) -> dict:
+    """The shredded parts of NCOP<levels>, the value f2n at ``levels``
+    gives (orders -> lineitems; customers -> ...; nations -> customers ->
+    ...), labelled as ``interpreter.shred_value`` labels them: each
+    dictionary's rows in depth-first order, a bag's label the row counter
+    of its dictionary (``shred_ncop2`` is level 2)."""
+    n_orders, n_cust = t["ord_cid"].size, t["cust_cname"].size
+    cust_perm = np.argsort(t["cust_nid"], kind="stable")
+    if levels == 1:
+        ord_perm = np.arange(n_orders)
+        ord_label = None
+    elif levels == 2:
+        ord_perm = np.argsort(t["ord_cid"], kind="stable")
+        ord_label = t["ord_cid"][ord_perm] - 1
+    else:
+        cust_pos = np.empty(n_cust, np.int64)
+        cust_pos[cust_perm] = np.arange(n_cust)
+        key = cust_pos[t["ord_cid"] - 1]
+        ord_perm = np.argsort(key, kind="stable")
+        ord_label = key[ord_perm]
+    per_order = np.bincount(t["li_oid"] - 1, minlength=n_orders)
+    li_start = np.concatenate([[0], np.cumsum(per_order)[:-1]])
+    cnt = per_order[ord_perm]
+    first = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    rows = np.repeat(li_start[ord_perm] - first, cnt) + np.arange(cnt.sum())
+    name = f"NCOP{levels}"
+    items = ({"pid": t["li_pid"][rows], "qty": t["li_qty"][rows],
+              "label": np.repeat(np.arange(n_orders, dtype=np.int64), cnt)},
+             _ones(rows.size))
+    orders = {"odate": t["ord_odate"][ord_perm],
+              "oparts": np.arange(n_orders, dtype=np.int64)}
+    if levels == 1:
+        return {f"{name}__F": (orders, _ones(n_orders)),
+                f"{name}__D_oparts": items}
+    orders["label"] = ord_label
+    if levels == 2:
+        return {f"{name}__F": ({"cname": t["cust_cname"],
+                                "corders": np.arange(n_cust, dtype=np.int64)},
+                               _ones(n_cust)),
+                f"{name}__D_corders": (orders, _ones(n_orders)),
+                f"{name}__D_corders_oparts": items}
+    return {f"{name}__F": ({"nname": t["nat_nname"],
+                            "ncusts": np.arange(25, dtype=np.int64)},
+                           _ones(25)),
+            f"{name}__D_ncusts": ({"cname": t["cust_cname"][cust_perm],
+                                   "corders": np.arange(n_cust,
+                                                        dtype=np.int64),
+                                   "label": t["cust_nid"][cust_perm] - 1},
+                                  _ones(n_cust)),
+            f"{name}__D_ncusts_corders": (orders, _ones(n_orders)),
+            f"{name}__D_ncusts_corders_oparts": items}
+
+
+def n2f_groupby(t: dict, levels: int):
+    """Independent float64 reference of n2f at ``levels``: key (odate,
+    cname or nname) -> (sum of qty * price, rows, sum |term|), as arrays
+    sorted by key."""
+    term = t["li_qty"] * t["part_price"][t["li_pid"] - 1]
+    order = t["li_oid"] - 1
+    if levels == 1:
+        key = t["ord_odate"][order]
+    else:
+        cust = t["ord_cid"][order] - 1
+        key = t["cust_cname"][cust] if levels == 2 \
+            else t["nat_nname"][t["cust_nid"][cust] - 1]
+    keys, inv = np.unique(key, return_inverse=True)
+    return (keys, np.bincount(inv, weights=term), np.bincount(inv),
+            np.bincount(inv, weights=np.abs(term)))
+
+
+def _bits64(a: torch.Tensor) -> torch.Tensor:
+    return a.view(torch.int64) if a.dtype == torch.float64 \
+        else a.to(torch.int64)
+
+
+def nested_digest(parts: dict, ty) -> torch.Tensor:
+    """A canonical form of the nested value held in ``parts`` ({path:
+    FlatBag}, labels linking each dictionary to its parent), on the
+    parts' device: every bag's rows hash bottom-up, a bag attribute
+    standing for the order-free sum of its rows' hashes (0 for an empty
+    bag), so that two routes that label their bags differently compare
+    equal when they hold the same value. Returns the sorted hashes of
+    the top-level rows."""
+    from repro_torch.core import nrc as N
+    from repro_torch.exec.hashing import GOLDEN, combine64, mix64
+
+    def elem_of(path):
+        cur = ty.elem
+        for a in path:
+            cur = dict(cur.fields)[a].elem
+        return cur
+
+    digests = {}                   # path -> (sorted labels, bag hashes)
+    for path in sorted(parts, key=len, reverse=True):
+        bag, elem = parts[path], elem_of(path)
+        cols = []
+        for name, fty in elem.fields:
+            col = _bits64(bag.data[name])
+            if isinstance(fty, N.BagT):
+                labels, sums = digests[path + (name,)]
+                if labels.numel() == 0:
+                    col = torch.zeros_like(col)
+                else:
+                    pos = torch.searchsorted(labels, col)
+                    pos_c = pos.clamp(max=labels.numel() - 1)
+                    hit = (pos < labels.numel()) & (labels[pos_c] == col)
+                    col = torch.where(hit, sums[pos_c], 0)
+            cols.append(col)
+        h = combine64(cols)[bag.valid]
+        if path == ():
+            return torch.sort(h).values
+        lab = bag.data["label"].to(torch.int64)[bag.valid]
+        labels, inv = torch.unique(lab, return_inverse=True)
+        sums = torch.zeros_like(labels).index_add_(0, inv, mix64(h + GOLDEN))
+        digests[path] = (labels, sums)
+    raise AssertionError("no top-level part")
+
+
+def parts_bytes(parts: dict) -> int:
+    from repro_torch.figures.common import bag_bytes
+    return sum(bag_bytes(b) for b in parts.values())
+
+
+def timed_calls(run):
+    """``run()`` cold, then warm with every launch counter zeroed and the
+    peak memory reset first: (warm output, cold s, warm ms, peak bytes of
+    the warm call above what was held before it, launch counts)."""
+    from repro_torch.kernels import ops as kops
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    counts = kops.launch_counts()
+    return (out, cold_s, warm_ms, torch.cuda.max_memory_allocated() - held,
+            {k: counts[k] for k in JOIN_KERNELS})
+
+
+def fig7_program(family: str, levels: int):
+    """(query, nested input name or None, its type, input types) of one
+    Fig. 7 point, built with ``repro_torch.figures.common``."""
+    from repro_torch.data.generators import TPCH_TYPES
+    from repro_torch.figures import common as FC
+    if family == "f2n":
+        return FC.flat_to_nested_query(levels), None, None, dict(TPCH_TYPES)
+    nty = FC.flat_to_nested_query(levels).ty
+    name = f"NCOP{levels}"
+    build = FC.nested_to_nested_query if family == "n2n" \
+        else FC.nested_to_flat_query
+    return (build(levels, name, nty), name, nty,
+            {**TPCH_TYPES, name: nty})
+
+
+# Fig. 7 points where the reference's standard route drops rows: its
+# outer joins of flat tables size their output at max(left, right)
+# capacity, with no room for the rows of empty bags (a customer without
+# orders, a nation without customers), and the overflow is discarded
+# (ROADMAP.md queue 3). The port gives the reference's parts there
+# (tests/test_torch_standard.py); the phase reports the difference.
+STANDARD_GAP = {("f2n", 2), ("f2n", 3)}
+
+
+def fig7_point(tag: str, family: str, levels: int, env_np: dict, t: dict,
+               dev) -> dict:
+    """One Fig. 7 point: the shredded route (``jit_program``; n2f sums
+    its body's output with ``sum_by``), the standard route
+    (``run_standard``) and, for f2n, the UNSHRED extra, each with
+    use_kernel=True cold and warm; each route against its use_kernel=False
+    run; the two routes against each other. Returns the warm times."""
+    from repro_torch.columnar.table import env_from_numpy
+    from repro_torch.core import codegen as CG
+    from repro_torch.core import materialization as M
+    from repro_torch.core import nrc as N
+    from repro_torch.core.plans import ExecSettings
+    from repro_torch.exec import ops as X
+    from repro_torch.figures.common import CATALOG
+    from repro_torch.figures.tpch_nested import standard_plan
+    q, name, nty, types = fig7_program(family, levels)
+    n2f = family == "n2f"
+    sp = M.shred_program(N.Program([N.Assignment(
+        "QB" if n2f else "Q", q.bag_expr if n2f else q)]), types,
+        domain_elimination=True)
+    cp = CG.compile_program(sp, CATALOG)
+    splan = standard_plan(q, name, nty)
+    env = env_from_numpy(env_np, dev)
+    exes = {uk: CG.jit_program(cp, ExecSettings(use_kernel=uk))
+            for uk in (True, False)}
+
+    def shred(uk):
+        out = exes[uk](env)
+        if n2f:
+            return {(): X.sum_by(out["QB"], q.keys, q.values,
+                                 use_kernel=uk)}
+        man = sp.manifests["Q"]
+        return {(): out[man.top], **{p: out[n] for p, n in
+                                     man.dicts.items()}}
+
+    def standard(uk):
+        return CG.run_standard(splan, env, ExecSettings(use_kernel=uk))
+
+    fields = f"assignments={len(sp.program.names())}"
+    if family == "n2n":
+        leaf = [n for n in sp.program.names() if "oparts" in n][-1]
+        fields += f";localized_leaf={leaf}"
+    res = {}
+    for route, fn in (("shred", shred), ("standard", standard)):
+        out, cold_s, warm_ms, peak, counts = timed_calls(lambda: fn(True))
+        if (family, route) != ("f2n", "shred"):   # f2n's parts: no join
+            assert all(counts.values()), (tag, route, counts)
+        plain = fn(False)
+        if n2f:
+            key = q.keys[0]
+            want = n2f_groupby(t, levels)
+            worst = check_revenue(out[()], want, exact=False, key=key)
+            check_revenue(plain[()], want, exact=True, key=key)
+            check = (f"{int(want[0].size)} groups: use_kernel=False equal to "
+                     f"the numpy float64 group-by, use_kernel=True within "
+                     f"n_g 2^-24 sum|x| of it ({worst:.3g} of the bound)")
+        else:
+            assert list(out) == list(plain)
+            for path in out:
+                bags_bit_equal(out[path], plain[path], f"{tag} {path}")
+            check = "bit-equal to the use_kernel=False run"
+        res[route] = dict(out=plain, warm_ms=warm_ms, run=fn)
+        log(f"[{tag}] {route}: cold {cold_s:.3f} s, warm {warm_ms:.1f} ms, "
+            f"peak {peak / 2 ** 30:.2f} GiB, parts {parts_bytes(out)} bytes"
+            f" ({ {str(p): b.capacity for p, b in out.items()} } rows), "
+            f"launches {counts}; {check}")
+        del out
+    if family == "f2n":
+        parts = res["shred"]["out"]
+        torch.cuda.synchronize()
+        _, _, warm_ms, peak, _ = timed_calls(lambda: CG.unshred_parts(parts))
+        log(f"[{tag}] unshred_extra: warm {warm_ms:.1f} ms, peak "
+            f"{peak / 2 ** 30:.2f} GiB")
+    std, shr = res["standard"]["out"], res["shred"]["out"]
+    log(f"[{tag}] {fields};out_bytes={parts_bytes(std)} (standard), "
+        f"{parts_bytes(shr)} (shredded parts)")
+    if n2f:
+        assert torch.equal(sorted_rows(std[()]), sorted_rows(shr[()]))
+        same = "the same rows"
+    else:
+        a, b = nested_digest(std, q.ty), nested_digest(shr, q.ty)
+        equal = a.shape == b.shape and bool(torch.equal(a, b))
+        if (family, levels) in STANDARD_GAP:
+            same = ("the same nested value" if equal else
+                    f"DIFFERENT values (the reference's known gap): "
+                    f"{a.numel()} top-level rows against {b.numel()}; "
+                    f"valid rows per part "
+                    f"{ {str(p): int(x.valid.sum()) for p, x in std.items()} }"
+                    f" against "
+                    f"{ {str(p): int(x.valid.sum()) for p, x in shr.items()} }")
+        else:
+            assert equal, (tag, a.numel(), b.numel())
+            same = "the same nested value"
+    log(f"[{tag}] standard and shredded routes (use_kernel=False) give "
+        f"{same}")
+    return {r: res[r]["warm_ms"] for r in res}
+
+
+def phase_fig7(seed: int, dev, scale: int = None, points=None) -> None:
+    """Phase H: every Fig. 7 point at ``scale`` orders (SF1), then n2n
+    level 2's standard route at phase B's order count beside its
+    shredded route; a profile of the slowest standard-route point."""
+    scale = scale or SCALE_H
+    t0 = time.perf_counter()
+    t = tpch_hierarchy(gen_tpch_columns(scale, seed), seed)
+    log(f"[H fig7] scale={scale} orders, seed={seed}: "
+        f"{t['li_oid'].size} lineitems, {t['part_pid'].size} parts, "
+        f"{t['cust_cname'].size} customers, 25 nations (generated in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    flat = fig7_flat(t)
+    part = flat["Part__F"]
+    slowest = (0.0, None)
+    for family, levels in points or [(f, lv) for f in ("f2n", "n2n", "n2f")
+                                     for lv in (1, 2, 3)]:
+        tag = f"H {family}-L{levels}"
+        env_np = flat if family == "f2n" else {**shred_nested(t, levels),
+                                                "Part__F": part}
+        ms = fig7_point(tag, family, levels, env_np, t, dev)
+        log(f"[{tag}] standard / shredded warm: "
+            f"{ms['standard'] / ms['shred']:.2f}x")
+        if ms["standard"] > slowest[0]:
+            slowest = (ms["standard"], (family, levels, env_np))
+        torch.cuda.empty_cache()
+    family, levels, env_np = slowest[1]
+    profile_standard(f"H {family}-L{levels} standard", family, levels,
+                     env_np, dev)
+
+
+def profile_standard(tag: str, family: str, levels: int, env_np: dict,
+                     dev) -> None:
+    from repro_torch.columnar.table import env_from_numpy
+    from repro_torch.core import codegen as CG
+    from repro_torch.core.plans import ExecSettings
+    from repro_torch.figures.tpch_nested import standard_plan
+    q, name, nty, _ = fig7_program(family, levels)
+    splan = standard_plan(q, name, nty)
+    env = env_from_numpy(env_np, dev)
+
+    def run():
+        return CG.run_standard(splan, env, ExecSettings(use_kernel=True))
+
+    run()
+    profile_run(run, tag)
+    del env
+    torch.cuda.empty_cache()
+
+
+def phase_fig7_large(cols: dict, dev, scale: int) -> None:
+    """Phase H, n2n level 2 at ``scale`` orders (``cols``, phase B's
+    distributions): ``run_standard`` beside the shredded
+    ``jit_program``, use_kernel=True, the same nested value."""
+    from repro_torch.columnar.table import env_from_numpy
+    from repro_torch.core import codegen as CG
+    from repro_torch.core import materialization as M
+    from repro_torch.core import nrc as N
+    from repro_torch.core.plans import ExecSettings
+    from repro_torch.figures.common import CATALOG
+    from repro_torch.figures.tpch_nested import standard_plan
+    tag = f"H n2n-L2 at {scale} orders"
+    q, name, nty, types = fig7_program("n2n", 2)
+    env_np = shred_ncop2(cols)
+    env = env_from_numpy(env_np, dev)
+    sp = M.shred_program(N.Program([N.Assignment("Q", q)]), types,
+                         domain_elimination=True)
+    exe = CG.jit_program(CG.compile_program(sp, CATALOG),
+                         ExecSettings(use_kernel=True))
+    man = sp.manifests["Q"]
+    out, cold_s, shred_ms, peak, counts = timed_calls(lambda: exe(env))
+    shr = {(): out[man.top], **{p: out[n] for p, n in man.dicts.items()}}
+    want = nested_digest(shr, q.ty)
+    assert all(counts.values()), counts
+    log(f"[{tag}] shredded jit_program: cold {cold_s:.3f} s, warm "
+        f"{shred_ms:.1f} ms, peak {peak / 2 ** 30:.2f} GiB, parts "
+        f"{parts_bytes(shr)} bytes, launches {counts}")
+    del out, shr
+    torch.cuda.empty_cache()
+    splan = standard_plan(q, name, nty)
+    std, cold_s, std_ms, peak, counts = timed_calls(
+        lambda: CG.run_standard(splan, env, ExecSettings(use_kernel=True)))
+    assert torch.equal(nested_digest(std, q.ty), want), tag
+    assert all(counts.values()), counts
+    log(f"[{tag}] run_standard: cold {cold_s:.3f} s, warm {std_ms:.1f} ms "
+        f"({std_ms / shred_ms:.2f}x the shredded route), peak "
+        f"{peak / 2 ** 30:.2f} GiB, out_bytes={parts_bytes(std)}, "
+        f"launches {counts}; the same nested value as the shredded route")
+    del std, env
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase I: Fig. 9, the biomedical pipeline
+# ---------------------------------------------------------------------------
+
+def gen_bio_shredded(n_samples: int, n_genes: int, seed: int,
+                     n_conseq: int = 10) -> dict:
+    """The shredded inputs of the biomedical pipeline, drawn in bulk from
+    ``repro.data.generators.gen_biomedical``'s distributions (skew 0):
+    1-5 mutations per sample, 0-4 candidate genes per mutation, 1-3
+    consequences per candidate; CopyNumber and GeneExpression over every
+    (sample, gene); 1-5 network edges per gene. Labels as
+    ``interpreter.shred_value`` gives them (row counters, depth-first)."""
+    rng = np.random.RandomState(seed)
+    S, G = n_samples, n_genes
+    i64 = lambda a: np.asarray(a, dtype=np.int64)  # noqa: E731
+    sample = np.arange(1, S + 1, dtype=np.int64)
+    n_mut = rng.randint(1, 6, S)
+    M_ = int(n_mut.sum())
+    n_cand = rng.randint(0, 5, M_)
+    C = int(n_cand.sum())
+    n_cons = rng.randint(1, 4, C)
+    K = int(n_cons.sum())
+    n_edge = rng.randint(1, 6, G)
+    E = int(n_edge.sum())
+    pair_s = np.repeat(sample, G)
+    pair_g = np.tile(np.arange(1, G + 1, dtype=np.int64), S)
+    return {
+        "Occurrences__F": ({"sample": np.repeat(sample, n_mut),
+                            "mutationId": np.arange(1, M_ + 1, dtype=np.int64),
+                            "candidates": np.arange(M_, dtype=np.int64)},
+                           _ones(M_)),
+        "Occurrences__D_candidates": (
+            {"gene": i64(rng.randint(1, G + 1, C)), "impact": rng.rand(C),
+             "sift": rng.rand(C), "poly": rng.rand(C),
+             "consequences": np.arange(C, dtype=np.int64),
+             "label": np.repeat(np.arange(M_, dtype=np.int64), n_cand)},
+            _ones(C)),
+        "Occurrences__D_candidates_consequences": (
+            {"conseq": i64(rng.randint(1, n_conseq + 1, K)),
+             "label": np.repeat(np.arange(C, dtype=np.int64), n_cons)},
+            _ones(K)),
+        "CopyNumber__F": ({"aliquot": 100 + pair_s, "gene": pair_g,
+                           "cnum": i64(rng.randint(0, 6, S * G))},
+                          _ones(S * G)),
+        "Samples__F": ({"sample": sample, "aliquot": 100 + sample},
+                       _ones(S)),
+        "SOImpact__F": ({"conseq": np.arange(1, n_conseq + 1, dtype=np.int64),
+                         "value": rng.rand(n_conseq)}, _ones(n_conseq)),
+        "Network__F": ({"nodeProtein": 500 + np.arange(1, G + 1,
+                                                       dtype=np.int64),
+                        "edges": np.arange(G, dtype=np.int64)}, _ones(G)),
+        "Network__D_edges": (
+            {"edgeProtein": 500 + i64(rng.randint(1, G, E)),
+             "distance": i64(rng.randint(1, 10, E)),
+             "label": np.repeat(np.arange(G, dtype=np.int64), n_edge)},
+            _ones(E)),
+        "Biomart__F": ({"gene": np.arange(1, G + 1, dtype=np.int64),
+                        "protein": 500 + np.arange(1, G + 1, dtype=np.int64)},
+                       _ones(G)),
+        "GeneExpression__F": ({"aliquot": 100 + pair_s, "gene": pair_g,
+                               "fpkm": rng.rand(S * G) * 10}, _ones(S * G)),
+    }
+
+
+def bio_bound(got, want, paths) -> float:
+    """``got`` (use_kernel=True) against ``want`` (use_kernel=False)
+    Connectivity bags: the same genes, and each score within
+    (4 T + 16) 2^-24 of the exact one, relatively, where T is the gene's
+    count of product paths (the pipeline over all-ones scores, ``paths``).
+    Every term is a product of nonnegative numbers, so each f32 rounding
+    of a term or a partial sum adds at most 2^-24 of the final value,
+    and a path passes through fewer than 4 T sums over the four steps.
+    Returns the largest error over its bound."""
+    def rows(bag):
+        v = bag.valid.cpu().numpy()
+        g = bag.data["gene"].cpu().numpy()[v]
+        s = bag.data["score"].cpu().numpy()[v]
+        o = np.argsort(g)
+        return g[o], s[o]
+    g1, s1 = rows(got)
+    g0, s0 = rows(want)
+    gp, tp = rows(paths)
+    assert np.array_equal(g1, g0) and np.array_equal(gp, g0), \
+        (g1.size, g0.size, gp.size)
+    bound = (4 * tp + 16) * 2.0 ** -24 * np.abs(s0)
+    err = np.abs(s1 - s0)
+    assert (err <= bound).all(), float((err - bound).max())
+    return float((err / np.maximum(bound, 1e-300)).max())
+
+
+def phase_bio(seed: int, dev, n_samples: int = None,
+              n_genes: int = None) -> None:
+    """Phase I: the Fig. 9 pipeline shredded (``jit_program``) at
+    ``n_samples`` x ``n_genes``, use_kernel=True cold and warm, held to
+    the use_kernel=False run within the f32 bound; then the figure
+    driver at gen_biomedical(10, 30) on the card, against the
+    interpreter."""
+    from repro_torch.columnar.table import env_from_numpy
+    from repro_torch.core import codegen as CG
+    from repro_torch.core import materialization as M
+    from repro_torch.core.plans import ExecSettings
+    from repro_torch.data.generators import BIO_TYPES
+    from repro_torch.figures import biomedical as FB
+    n_samples, n_genes = n_samples or BIO_SAMPLES, n_genes or BIO_GENES
+    tag = "I bio"
+    t0 = time.perf_counter()
+    env_np = gen_bio_shredded(n_samples, n_genes, seed)
+    log(f"[{tag}] n_samples={n_samples}, n_genes={n_genes}, seed={seed}: "
+        f"{ {k: int(v[1].size) for k, v in env_np.items()} } (generated "
+        f"in {time.perf_counter() - t0:.1f} s)")
+    prog = FB.build_pipeline()
+    sp = M.shred_program(prog, BIO_TYPES, domain_elimination=True)
+    cp = CG.compile_program(sp, FB.CATALOG)
+    top = sp.manifests["Connectivity"].top
+    env = env_from_numpy(env_np, dev)
+    exe = CG.jit_program(cp, ExecSettings(use_kernel=True))
+    out, cold_s, warm_ms, peak, counts = timed_calls(lambda: exe(env))
+    log(f"[{tag}] jit_program use_kernel=True (steps=4;assignments="
+        f"{len(sp.program.names())}): cold {cold_s:.3f} s, warm "
+        f"{warm_ms:.1f} ms, peak {peak / 2 ** 30:.2f} GiB, launches "
+        f"{counts}")
+    assert all(counts.values()), counts
+    got = out[top]
+    del out
+    plain = CG.jit_program(cp, ExecSettings(use_kernel=False))(env)[top]
+    ones_np = {k: ({c: (np.ones_like(a) if a.dtype == np.float64 else a)
+                    for c, a in cols.items()}, valid)
+               for k, (cols, valid) in env_np.items()}
+    paths = CG.jit_program(cp, ExecSettings(use_kernel=False))(
+        env_from_numpy(ones_np, dev))[top]
+    worst = bio_bound(got, plain, paths)
+    log(f"[{tag}] Connectivity: {int(plain.valid.sum())} genes, within the "
+        f"f32 bound of the use_kernel=False run ({worst:.3g} of it)")
+    del got, plain, paths, env
+    torch.cuda.empty_cache()
+    rows = FB.run(10, 30, device=dev)
+    assert rows[0].endswith("match=True"), rows
+    log(f"[{tag}] figures.biomedical at gen_biomedical(10, 30) on the card: "
+        f"{rows[0]}")
+
+
+# ---------------------------------------------------------------------------
+# phase J: App. E.1 and segment_reduce
+# ---------------------------------------------------------------------------
+
+def reduce_bound_check(vals, seg, S: int, tag: str) -> None:
+    """The kernel on ``rand`` values: each segment within 2 n_s 2^-24
+    sum|x| of a float64 sum, and two launches bit-identical."""
+    from repro_torch.kernels import segment_reduce as SR
+    a = SR.segment_reduce_cuda(vals, seg, S)
+    b = SR.segment_reduce_cuda(vals, seg, S)
+    ids = seg.to(torch.int64)
+    exact = torch.zeros((S, vals.shape[1]), dtype=torch.float64,
+                        device=vals.device).index_add_(0, ids, vals.double())
+    n_s = torch.bincount(ids, minlength=S).double()[:, None]
+    err = (a.double() - exact).abs()
+    bound = 2 * n_s * 2.0 ** -24 * exact            # rand values are >= 0
+    assert torch.equal(a, b), f"{tag}: repeated launches differ"
+    assert bool((err <= bound).all()), float((err - bound).max())
+    log(f"  [{tag}] rand values: within 2 n_s 2^-24 sum|x| of a float64 sum "
+        f"({float((err / bound.clamp(min=1e-300)).max()):.3g} of it); two "
+        f"launches bit-identical")
+
+
+def phase_representation(cols: dict, seed: int, dev,
+                         n_a: int = 1 << 26) -> list:
+    """Phase J: App. E.1 — row-wise dict aggregation (2^20 rows) against
+    the columnar ``sum_by`` on the card — and ``segment_reduce`` through
+    its dispatch at (a) the reference's rows-per-group ratio scaled to
+    2^26 rows and (b) SF10's lineitems grouped by part, d = 1 and 4:
+    launched with every counter zeroed first; bit-exact against its
+    plain version on integer values, within the f32 bound on random
+    ones; timed. Returns the kernel records of (a) and (b) d = 4."""
+    from repro_torch.columnar.table import FlatBag
+    from repro_torch.exec import ops as X
+    from repro_torch.kernels import ops as kops
+    rng = np.random.RandomState(seed)
+    S_a = -(-n_a * 256 // 20000)                # 858,993 at 2^26 rows
+    seg_a = torch.sort(torch.as_tensor(rng.randint(0, S_a, n_a), device=dev)
+                       ).values.to(torch.int32)
+    ints_a = torch.as_tensor(rng.randint(0, 100, (n_a, 1)).astype(np.float32),
+                             device=dev)
+    # App. E.1: row-wise (AoS) against columnar (SoA)
+    n_row = min(1 << 20, n_a)
+    keys = seg_a[:: n_a // n_row].cpu().numpy()
+    vs = rng.rand(n_row)
+    rows = [{"k": int(k), "v": float(v)} for k, v in zip(keys, vs)]
+    t0 = time.perf_counter()
+    acc = {}
+    for r in rows:
+        acc[r["k"]] = acc.get(r["k"], 0.0) + r["v"]
+    row_ns = (time.perf_counter() - t0) / n_row * 1e9
+    del rows, acc
+    bag = FlatBag({"k": seg_a.to(torch.int64), "v": ints_a[:, 0].double()},
+                  torch.ones(n_a, dtype=torch.bool, device=dev))
+    _, cold_s, warm_ms, peak, _ = timed_calls(
+        lambda: X.sum_by(bag, ("k",), ("v",), use_kernel=True))
+    log(f"[J repr] row-wise dict aggregation: {row_ns:.1f} ns per row over "
+        f"{n_row} rows (host); columnar sum_by on the card: warm "
+        f"{warm_ms:.1f} ms over {n_a} rows, {warm_ms * 1e6 / n_a:.2f} ns "
+        f"per row ({row_ns / (warm_ms * 1e6 / n_a):.0f}x), peak "
+        f"{peak / 2 ** 30:.2f} GiB")
+    del bag
+    # (b): SF10's lineitems grouped by part
+    S_b = int(cols["part_pid"].size)
+    seg_b = torch.sort(torch.as_tensor(cols["li_pid"] - 1, device=dev)
+                       ).values.to(torch.int32)
+    n_b = seg_b.numel()
+    ints_b = torch.as_tensor(rng.randint(0, 100, (n_b, 4)).astype(np.float32),
+                             device=dev)
+    shapes = {"a": (ints_a, seg_a, S_a), "b d=1": (ints_b[:, :1].contiguous(),
+                                                   seg_b, S_b),
+              "b d=4": (ints_b, seg_b, S_b)}
+    kops.reset_launch_counts()
+    for vals, seg, S in shapes.values():
+        kops.segment_reduce(vals, seg, S)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    log(f"[J segment_reduce] dispatch at (a) n={n_a}, S={S_a}, d=1 and (b) "
+        f"n={n_b}, S={S_b}, d=1 and 4: launches {counts}")
+    assert counts["segment_reduce"] == len(shapes), counts
+    recs = []
+    for label, (vals, seg, S) in shapes.items():
+        tag = f"J segment_reduce ({label})"
+        reduce_bound_check(torch.rand(vals.shape, device=dev), seg, S, tag)
+        got = measure_kernels({"segment_reduce": (vals, seg, S)}, counts,
+                              tag)
+        for rec in got:
+            rec["launches_in"] = "J segment_reduce dispatch"
+            rec["shape"] = f"({label}) n={seg.numel()}, d={vals.shape[1]}, S={S}"
+        if label != "b d=1":
+            recs += got
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1745,8 +2453,19 @@ def main() -> int:
     recs_d = phase_stored(args.seed, dev)
     torch.cuda.empty_cache()
     recs_fg = phase_distributed(args.seed, dev)
+    torch.cuda.empty_cache()
+    phase_fig7(args.seed, dev)
+    torch.cuda.empty_cache()
+    phase_fig7_large(gen_tpch_columns(SCALE_H_STD, args.seed), dev,
+                     SCALE_H_STD)
+    torch.cuda.empty_cache()
+    phase_bio(args.seed, dev)
+    torch.cuda.empty_cache()
+    recs_j = phase_representation(gen_tpch_columns(SCALE_B, args.seed),
+                                  args.seed, dev)
     print(nvidia_smi(), flush=True)
-    print(json.dumps({"kernels": recs_b + recs_d + recs_fg}), flush=True)
+    print(json.dumps({"kernels": recs_b + recs_d + recs_fg + recs_j}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

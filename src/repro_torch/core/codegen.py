@@ -19,9 +19,8 @@ of ``repro.core.codegen``).
   label and derives CSR offsets (the UNSHRED cost in the paper).
 * ``compile_program_distributed`` — the same schedule on every site of
   a virtual mesh (``exec.dist``), with ``DistRunner`` as its warm path.
-
-``run_standard`` comes with a later slice of the port (ROADMAP.md
-queue 1 item 3).
+* ``run_standard``      — executes a StandardPlan (wide flattening +
+  bottom-up Gamma_u nest rebuild), returning nested *parts*.
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ from .plans import ExecSettings, Plan, ProgramGraph, \
     apply_skew_program, as_scalar_tensor, build_program_graph, \
     collect_params, cse_program, dce_program, eval_plan, \
     prune_program_columns, push_aggregation, push_order, push_partitioning
-from .unnesting import Catalog, compile_flat_query
+from .unnesting import Catalog, StandardPlan, compile_flat_query
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +448,84 @@ def compile_program_distributed(
 
     return D.compile_distributed(fn, env, mesh, use_kernel=use_kernel,
                                  params=defaults, **dist_kwargs)
+
+
+# ---------------------------------------------------------------------------
+# standard route execution
+# ---------------------------------------------------------------------------
+
+def run_standard(sp: StandardPlan, env: Dict[str, FlatBag],
+                 settings: Optional[ExecSettings] = None
+                 ) -> Dict[tuple, FlatBag]:
+    """Execute a StandardPlan; returns nested output as parts
+    {path: FlatBag} (non-root parts carry a ``label`` column)."""
+    settings = settings or ExecSettings()
+    bag = eval_plan(sp.wide, env, settings)
+    parts: Dict[tuple, FlatBag] = {}
+
+    def flags_and(b: FlatBag, cols: tuple) -> torch.Tensor:
+        m = torch.ones(b.capacity, dtype=torch.bool, device=b.device)
+        for c in cols:
+            if c in b.data:
+                m = m & b.col(c)
+        return m
+
+    # nested-to-flat: single aggregate at the top, no nest levels
+    if sp.flat_agg is not None:
+        keys, vals = sp.flat_agg
+        ext = {out: bag.col(col) for out, col in sp.top_rename}
+        all_matched = tuple(c for c in bag.data if c.startswith("__m."))
+        mask = flags_and(bag, all_matched)
+        bag = bag.with_columns(**ext).mask(mask)
+        out = X.sum_by(bag, keys, vals, use_kernel=settings.use_kernel)
+        parts[()] = out.select_columns(list(keys) + list(vals))
+        return parts
+
+    for spec in sp.nests:  # bottom-up
+        mflag = flags_and(bag, spec.matched_cols)
+        if spec.sum_agg is not None:
+            agg_keys, agg_vals = spec.sum_agg
+            ext = {}
+            for out_name, col in spec.rename:
+                if out_name in agg_keys:
+                    ext[out_name] = bag.col(col)
+                elif out_name in agg_vals:
+                    v = bag.col(col)
+                    ext[out_name] = torch.where(mflag, v, torch.zeros_like(v))
+            ext["__mcnt"] = mflag.to(torch.int64)
+            bag2 = bag.with_columns(**ext)
+            agg = X.sum_by(bag2, tuple(spec.group_cols) + tuple(agg_keys),
+                           tuple(agg_vals) + ("__mcnt",),
+                           use_kernel=settings.use_kernel)
+            agg = agg.with_columns(__cv=agg.col("__mcnt") > 0)
+            child_cols = tuple(agg_keys) + tuple(agg_vals)
+            parents, children = X.nest_level(
+                agg, spec.group_cols, child_cols, spec.label_col,
+                child_valid_col="__cv", use_kernel=settings.use_kernel)
+        else:
+            ext = {out_name: bag.col(col) for out_name, col in spec.rename
+                   if col in bag.data}
+            bag2 = bag.with_columns(**ext, __cv=mflag)
+            child_cols = tuple(out for out, _ in spec.rename)
+            parents, children = X.nest_level(
+                bag2, spec.group_cols, child_cols, spec.label_col,
+                child_valid_col="__cv", use_kernel=settings.use_kernel)
+        parts[spec.path] = FlatBag(
+            {"label": children.col(spec.label_col),
+             **{c: children.col(c) for c in child_cols}},
+            children.valid)
+        # parent label column becomes available for the level above
+        bag = parents
+
+    # top level
+    top_matched = tuple(c for c in bag.data if c.startswith("__m."))
+    mask = flags_and(bag, top_matched)
+    data = {}
+    for out_name, col in sp.top_rename:
+        src = col if col in bag.data else out_name
+        data[out_name] = bag.col(src)
+    parts[()] = FlatBag(data, bag.valid & mask)
+    return parts
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ from typing import Optional
 
 import torch
 
-from . import decode, gather_join, ref, segment_fused, shuffle_pack
+from . import (decode, gather_join, ref, segment_fused, segment_reduce as
+               segment_reduce_kernel, shuffle_pack)
 
 
 def _route(t: torch.Tensor, what: str) -> bool:
@@ -26,6 +27,26 @@ def _route(t: torch.Tensor, what: str) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{what}: no kernel or plain version for {t.device}")
+
+
+def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """Sorted-segment sum. values (n,) or (n, d), summed in f32 and cast
+    back to their dtype; rows with ids outside [0, num_segments) are
+    dropped."""
+    squeeze = values.dim() == 1
+    if squeeze:
+        values = values[:, None]
+    dtype = values.dtype
+    if not _route(seg_ids, "segment_reduce"):
+        out = ref.segment_reduce_ref(values.to(torch.float32), seg_ids,
+                                     num_segments)
+    else:
+        out = segment_reduce_kernel.segment_reduce_cuda(
+            values.to(torch.float32).contiguous(),
+            seg_ids.to(torch.int32).contiguous(), num_segments)
+    out = out.to(dtype)
+    return out[:, 0] if squeeze else out
 
 
 def segment_sum_first(values: torch.Tensor, keys: torch.Tensor,
@@ -58,7 +79,6 @@ def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return ref.gather_rows_ref(values, idx)
     return gather_join.gather_rows_cuda(values.contiguous(),
                                         idx.to(torch.int64).contiguous())
-
 
 
 def pack_rows(values: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor
@@ -95,6 +115,7 @@ def member_mask(keys: torch.Tensor, heavy: torch.Tensor) -> torch.Tensor:
         return ref.member_mask_ref(keys, heavy)
     return shuffle_pack.member_mask_cuda(keys.to(torch.int64).contiguous(),
                                          heavy.to(torch.int64).contiguous())
+
 
 def _into(out: Optional[torch.Tensor], res: torch.Tensor) -> torch.Tensor:
     if out is None:
@@ -144,7 +165,8 @@ def dict_gather(values: torch.Tensor, codes: torch.Tensor,
 
 
 def launch_counts() -> dict:
-    return {"segment_sum_first": segment_fused.LAUNCHES,
+    return {"segment_reduce": segment_reduce_kernel.LAUNCHES,
+            "segment_sum_first": segment_fused.LAUNCHES,
             "merge_positions": gather_join.MERGE_LAUNCHES,
             "gather_rows": gather_join.GATHER_LAUNCHES,
             "rle_expand": decode.RLE_LAUNCHES,
@@ -158,6 +180,7 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    segment_reduce_kernel.LAUNCHES = 0
     segment_fused.LAUNCHES = 0
     gather_join.MERGE_LAUNCHES = 0
     gather_join.GATHER_LAUNCHES = 0

@@ -14,6 +14,8 @@ I64_MAX = torch.iinfo(torch.int64).max
 def segment_reduce_ref(values: torch.Tensor, seg_ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
     """Segment sum with out-of-range ids dropped."""
+    if num_segments == 0:      # no row to add into (CUDA asserts on it)
+        return values.new_zeros((0,) + tuple(values.shape[1:]))
     ok = (seg_ids >= 0) & (seg_ids < num_segments)
     vals = torch.where(ok[:, None], values, torch.zeros_like(values))
     ids = torch.where(ok, seg_ids, torch.zeros_like(seg_ids)).to(torch.int64)

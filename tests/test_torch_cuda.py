@@ -144,7 +144,7 @@ def test_slice_on_card_equals_port_on_cpu(cuda, domain_elimination):
     from repro_torch.core.unnesting import Catalog
     env_np = chip_smoke.shred_ncop2(chip_smoke.gen_tpch_columns(3000, 1))
     part_t, ncop2_t = chip_smoke.tpch_types()
-    q = chip_smoke.nested_to_nested_query(2, "NCOP2", ncop2_t, part_t)
+    q = chip_smoke.nested_to_nested_query(2, "NCOP2", ncop2_t)
     sp = M.shred_program(N.Program([N.Assignment("Q", q)]),
                          {"NCOP2": ncop2_t, "Part": part_t},
                          domain_elimination=domain_elimination)
@@ -272,7 +272,7 @@ def test_stored_path_on_card_equals_port_on_cpu(cuda, tmp_path):
     types = {"NCOP2": ncop2_t, "Part": part_t}
     w = DatasetWriter(str(tmp_path), "tpch", types, chunk_rows=1024)
     w.write_parts(env_from_numpy(env_np, "cpu"))
-    q = chip_smoke.nested_to_nested_query(2, "NCOP2", ncop2_t, part_t)
+    q = chip_smoke.nested_to_nested_query(2, "NCOP2", ncop2_t)
     prog = N.Program([N.Assignment("Q", q)])
     cat = Catalog(unique_keys={"Part__F": ("pid",)})
     out = {}
@@ -381,7 +381,7 @@ def test_distributed_running_example_kernels_equal_plain(cuda, skew):
     env_np = chip_smoke.shred_ncop2(chip_smoke.gen_tpch_columns(4000, 2,
                                                                 2.0))
     part_t, ncop2_t = chip_smoke.tpch_types()
-    q = chip_smoke.nested_to_nested_query(2, "NCOP2", ncop2_t, part_t)
+    q = chip_smoke.nested_to_nested_query(2, "NCOP2", ncop2_t)
     sp = M.shred_program(N.Program([N.Assignment("Q", q)]),
                          {"NCOP2": ncop2_t, "Part": part_t},
                          domain_elimination=True)
@@ -408,3 +408,73 @@ def test_distributed_running_example_kernels_equal_plain(cuda, skew):
     for name in cp.outputs:
         chip_smoke.bags_bit_equal(outs[True][0][name], outs[False][0][name],
                                   name)
+
+
+# ---------------------------------------------------------------------------
+# segment_reduce and the standard route
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_segment_reduce_edge_cases_bit_exact_and_counted(cuda):
+    """Every edge case bit-exact against the plain version; a dispatch
+    with segments launches once, one with none launches nothing."""
+    for name, (vals, seg, S) in chip_smoke.reduce_edge_cases(cuda,
+                                                             large=True):
+        kern, plain_fn, _, _ = chip_smoke.kernel_fns(name, (vals, seg, S))
+        assert chip_smoke.max_abs_err(kern(), plain_fn()) == 0.0, \
+            (vals.shape, S)
+        before = TK.launch_counts()["segment_reduce"]
+        TK.segment_reduce(vals, seg, S)
+        assert TK.launch_counts()["segment_reduce"] == before + (S > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4])
+def test_segment_reduce_repeats_bitwise_within_the_f32_bound(cuda, d):
+    """Random values: two launches give the same bits, each segment
+    within 2 n_s 2^-24 sum|x| of a float64 sum; a 1-D float64 input
+    comes back 1-D float64."""
+    from repro_torch.kernels import segment_reduce as TSR
+    rng = np.random.RandomState(d)
+    n, S = 300000, 2000
+    seg = np.sort(rng.randint(0, S, n)).astype(np.int32)
+    seg[:5000] = 0                                  # one block-sized range
+    vals = rng.rand(n, d).astype(np.float32)
+    v, g = torch.from_numpy(vals).to(cuda), torch.from_numpy(seg).to(cuda)
+    a, b = TSR.segment_reduce_cuda(v, g, S), TSR.segment_reduce_cuda(v, g, S)
+    assert torch.equal(a, b)
+    want = np.zeros((S, d))
+    np.add.at(want, seg, vals.astype(np.float64))
+    n_s = np.bincount(seg, minlength=S)[:, None]
+    assert (np.abs(a.cpu().numpy() - want) <= 2 * n_s * 2.0 ** -24 * want
+            ).all()
+    one = TK.segment_reduce(v[:, 0].double(), g, S)
+    assert one.dtype == torch.float64 and one.shape == (S,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 2, 3])
+def test_standard_route_on_card_equals_port_on_cpu(cuda, levels):
+    """Fig. 7's n2n point at ``levels`` through run_standard with the
+    kernels on the card equals the port's plain run on the CPU."""
+    from repro_torch.columnar.table import FlatBag
+    from repro_torch.core import codegen as CG
+    from repro_torch.core.plans import ExecSettings
+    from repro_torch.data.generators import gen_tpch
+    from repro_torch.figures import tpch_nested as FT
+    from repro_torch.figures.common import nested_to_nested_query
+    db = gen_tpch(scale=200, skew=0.0, seed=1)
+    name, nty, inputs, types = FT.nested_inputs(db, levels)
+    splan = FT.standard_plan(nested_to_nested_query(levels, name, nty),
+                             name, nty)
+    TK.reset_launch_counts()
+    gpu = CG.run_standard(splan, CG.columnar_shred_inputs(
+        inputs, types, device=cuda), ExecSettings(use_kernel=True))
+    assert all(TK.launch_counts()[k] > 0 for k in KERNELS)
+    cpu = CG.run_standard(splan, CG.columnar_shred_inputs(
+        inputs, types, device="cpu"), ExecSettings(use_kernel=False))
+    assert list(gpu) == list(cpu)
+    for path in cpu:
+        host = FlatBag({c: a.cpu() for c, a in gpu[path].data.items()},
+                       gpu[path].valid.cpu())
+        chip_smoke.bags_bit_equal(cpu[path], host, str(path))

@@ -43,6 +43,12 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.core.skew, repro_torch.storage.morsel\n"
         "import repro_torch.exec.dist, repro_torch.core.cost\n"
         "import repro_torch.kernels.shuffle_pack\n"
+        "import repro_torch.kernels.segment_reduce, repro_torch.data\n"
+        "import repro_torch.data.generators, repro_torch.figures\n"
+        "import repro_torch.figures.common, repro_torch.figures.tpch_nested\n"
+        "import repro_torch.figures.biomedical\n"
+        "import repro_torch.figures.succinct\n"
+        "import repro_torch.figures.representation\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -5,9 +5,10 @@ The reference's builders (``benchmarks/common.py``, ``tests/
 test_differential.py``, ``examples/quickstart.py``) construct objects of
 ``repro.core.nrc``; the port needs the same queries built with
 ``repro_torch.core.nrc``. Each builder here takes the NRC module ``N`` as
-its first argument, so one text builds both. The tests below pin every
-builder: built with the reference's ``N``, its ``N.pretty`` text equals
-that of the reference's own builder.
+its first argument, so one text builds both; the TPC-H family is the
+port's ``figures/common.py``. The tests below pin every builder: built
+with the reference's ``N``, its ``N.pretty`` text equals that of the
+reference's own builder.
 """
 
 import contextlib
@@ -21,6 +22,7 @@ import pytest
 from repro.core import nrc as RN
 from repro_torch.obs import reset_telemetry
 from repro_torch.core import nrc as TN
+from repro_torch.figures import common as FC
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
@@ -39,131 +41,30 @@ def fresh_start(*mods, value: int = 0) -> None:
 
 
 # ---------------------------------------------------------------------------
-# TPC-H (benchmarks/common.py, repro/data/generators.py)
+# TPC-H (benchmarks/common.py, repro/data/generators.py): the port's own
+# builders in ``repro_torch.figures.common``, which take the NRC module
+# as ``N`` too, in this file's argument order
 # ---------------------------------------------------------------------------
 
 def tpch_types(N) -> dict:
-    return {
-        "Part": N.bag(N.tuple_t(pid=N.INT, pname=N.INT, price=N.REAL)),
-        "Lineitem": N.bag(N.tuple_t(oid=N.INT, pid=N.INT, qty=N.REAL)),
-        "Orders": N.bag(N.tuple_t(oid=N.INT, cid=N.INT, odate=N.INT)),
-        "Customer": N.bag(N.tuple_t(cid=N.INT, nid=N.INT, cname=N.INT)),
-        "Nation": N.bag(N.tuple_t(nid=N.INT, rid=N.INT, nname=N.INT)),
-        "Region": N.bag(N.tuple_t(rid=N.INT, rname=N.INT)),
-    }
+    return FC.tpch_types(N)
 
 
 def tpch_catalog(C):
     """``benchmarks.common.CATALOG`` from a Catalog class."""
-    return C(unique_keys={
-        "Part__F": ("pid",), "Orders__F": ("oid",), "Customer__F": ("cid",),
-        "Nation__F": ("nid",), "Region__F": ("rid",)})
+    return FC.tpch_catalog(C)
 
 
 def flat_to_nested_query(N, levels: int):
-    """Group Lineitem under Orders/Customer/Nation (levels deep)."""
-    T = tpch_types(N)
-    L = N.Var("Lineitem", T["Lineitem"])
-    O = N.Var("Orders", T["Orders"])  # noqa: E741
-    C = N.Var("Customer", T["Customer"])
-    Na = N.Var("Nation", T["Nation"])
-
-    def items_of(o):
-        return N.for_in("l", L, lambda l:
-            N.IfThen(o.oid.eq(l.oid),
-                     N.Singleton(N.record(pid=l.pid, qty=l.qty))))
-
-    def orders_of(c):
-        return N.for_in("o", O, lambda o:
-            N.IfThen(c.cid.eq(o.cid),
-                     N.Singleton(N.record(odate=o.odate,
-                                          oparts=items_of(o)))))
-
-    def custs_of(n):
-        return N.for_in("c", C, lambda c:
-            N.IfThen(n.nid.eq(c.nid),
-                     N.Singleton(N.record(cname=c.cname,
-                                          corders=orders_of(c)))))
-
-    if levels == 1:
-        return N.for_in("o", O, lambda o: N.Singleton(N.record(
-            odate=o.odate, oparts=items_of(o))))
-    if levels == 2:
-        return N.for_in("c", C, lambda c: N.Singleton(N.record(
-            cname=c.cname, corders=orders_of(c))))
-    if levels == 3:
-        return N.for_in("n", Na, lambda n: N.Singleton(N.record(
-            nname=n.nname, ncusts=custs_of(n))))
-    raise ValueError(levels)
+    return FC.flat_to_nested_query(levels, N)
 
 
 def nested_to_nested_query(N, levels: int, input_name: str, input_ty):
-    """Join Part at the lowest level + sumBy (Example 1 generalized)."""
-    P = N.Var("Part", tpch_types(N)["Part"])
-    X = N.Var(input_name, input_ty)
-
-    def agg(op_bag_holder):
-        inner = N.for_in("op", op_bag_holder, lambda op:
-            N.for_in("p", P, lambda p:
-                N.IfThen(op.pid.eq(p.pid),
-                         N.Singleton(N.record(pname=p.pname,
-                                              total=op.qty * p.price)))))
-        return N.SumBy(inner, keys=("pname",), values=("total",))
-
-    if levels == 1:
-        return N.for_in("x", X, lambda x: N.Singleton(N.record(
-            odate=x.odate, oparts=agg(x.oparts))))
-    if levels == 2:
-        return N.for_in("x", X, lambda x: N.Singleton(N.record(
-            cname=x.cname,
-            corders=N.for_in("co", x.corders, lambda co:
-                N.Singleton(N.record(odate=co.odate,
-                                     oparts=agg(co.oparts)))))))
-    if levels == 3:
-        return N.for_in("x", X, lambda x: N.Singleton(N.record(
-            nname=x.nname,
-            ncusts=N.for_in("c", x.ncusts, lambda c:
-                N.Singleton(N.record(
-                    cname=c.cname,
-                    corders=N.for_in("co", c.corders, lambda co:
-                        N.Singleton(N.record(odate=co.odate,
-                                             oparts=agg(co.oparts))))))))))
-    raise ValueError(levels)
+    return FC.nested_to_nested_query(levels, input_name, input_ty, N)
 
 
 def nested_to_flat_query(N, levels: int, input_name: str, input_ty):
-    P = N.Var("Part", tpch_types(N)["Part"])
-    X = N.Var(input_name, input_ty)
-    if levels == 1:
-        inner = N.for_in("x", X, lambda x:
-            N.for_in("op", x.oparts, lambda op:
-                N.for_in("p", P, lambda p:
-                    N.IfThen(op.pid.eq(p.pid),
-                             N.Singleton(N.record(odate=x.odate,
-                                                  total=op.qty * p.price))))))
-        return N.SumBy(inner, keys=("odate",), values=("total",))
-    if levels == 2:
-        inner = N.for_in("x", X, lambda x:
-            N.for_in("co", x.corders, lambda co:
-                N.for_in("op", co.oparts, lambda op:
-                    N.for_in("p", P, lambda p:
-                        N.IfThen(op.pid.eq(p.pid),
-                                 N.Singleton(N.record(
-                                     cname=x.cname,
-                                     total=op.qty * p.price)))))))
-        return N.SumBy(inner, keys=("cname",), values=("total",))
-    if levels == 3:
-        inner = N.for_in("x", X, lambda x:
-            N.for_in("c", x.ncusts, lambda c:
-                N.for_in("co", c.corders, lambda co:
-                    N.for_in("op", co.oparts, lambda op:
-                        N.for_in("p", P, lambda p:
-                            N.IfThen(op.pid.eq(p.pid),
-                                     N.Singleton(N.record(
-                                         nname=x.nname,
-                                         total=op.qty * p.price))))))))
-        return N.SumBy(inner, keys=("nname",), values=("total",))
-    raise ValueError(levels)
+    return FC.nested_to_flat_query(levels, input_name, input_ty, N)
 
 
 # ---------------------------------------------------------------------------

@@ -256,7 +256,7 @@ def test_stored_streaming_equals_one_shot_as_bags(tmp_path):
     cat.writer("tpch", types, chunk_rows=40).write_parts(
         env_from_numpy(env_np, "cpu"))
     ds = cat.open("tpch")
-    q = chip_smoke.nested_to_nested_query(2, "NCOP2", ncop2_t, part_t)
+    q = chip_smoke.nested_to_nested_query(2, "NCOP2", ncop2_t)
     prog = TN.Program([TN.Assignment("Q", q)])
     svc = TService(types, catalog=TCatalog(unique_keys={"Part__F": ("pid",)}))
     one = svc.execute_stored(prog, ds)
