@@ -16,8 +16,9 @@ from typing import Optional
 
 import torch
 
-from . import (decode, gather_join, ref, segment_fused, segment_reduce as
-               segment_reduce_kernel, shuffle_pack)
+from . import (decode, flash_attention as flash_attention_kernel,
+               gather_join, ref, rwkv6_scan as rwkv6_kernel, segment_fused,
+               segment_reduce as segment_reduce_kernel, shuffle_pack)
 
 
 def _route(t: torch.Tensor, what: str) -> bool:
@@ -164,6 +165,37 @@ def dict_gather(values: torch.Tensor, codes: torch.Tensor,
                                    out)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Softmax attention of q (B, H, Sq, D) over k, v (B, Hkv, Sk, D)
+    with GQA, causal and sliding-window masks (rows and keys counted
+    from 0) and logit soft-capping; f32 arithmetic, out in q's dtype.
+    Refuses calls where a query row has no unmasked key."""
+    if not _route(q, "flash_attention"):
+        flash_attention_kernel.check_masks(q.shape[2], k.shape[2], causal,
+                                           window)
+        return ref.attention_ref(q, k, v, causal, window, softcap, scale)
+    return flash_attention_kernel.flash_attention_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal, window,
+        softcap, scale)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, chunk: int = 64
+               ) -> torch.Tensor:
+    """The RWKV-6 recurrence: r, k, w (B, H, T, K), v (B, H, T, V), u
+    (H, K) -> (B, H, T, V) in r's dtype, f32 inside. The kernel runs the
+    chunked form with chunks of ``chunk`` steps; the plain version the
+    sequential recurrence (the chunk changes only the rounding)."""
+    if not _route(r, "rwkv6_scan"):
+        return ref.rwkv6_ref(r, k, v, w, u)
+    return rwkv6_kernel.rwkv6_cuda(
+        r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
+        u.to(torch.float32).contiguous(), chunk)
+
+
 def launch_counts() -> dict:
     return {"segment_reduce": segment_reduce_kernel.LAUNCHES,
             "segment_sum_first": segment_fused.LAUNCHES,
@@ -176,7 +208,9 @@ def launch_counts() -> dict:
             "member_mask": shuffle_pack.MEMBER_LAUNCHES,
             "pack_rows": shuffle_pack.PACK_LAUNCHES,
             "unpack_cols": shuffle_pack.UNPACK_LAUNCHES,
-            "replicate_scatter": shuffle_pack.REPL_LAUNCHES}
+            "replicate_scatter": shuffle_pack.REPL_LAUNCHES,
+            "flash_attention": flash_attention_kernel.LAUNCHES,
+            "rwkv6": rwkv6_kernel.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -192,3 +226,5 @@ def reset_launch_counts() -> None:
     shuffle_pack.PACK_LAUNCHES = 0
     shuffle_pack.UNPACK_LAUNCHES = 0
     shuffle_pack.REPL_LAUNCHES = 0
+    flash_attention_kernel.LAUNCHES = 0
+    rwkv6_kernel.LAUNCHES = 0

@@ -5,6 +5,8 @@ against them on the card."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 I32_MAX = torch.iinfo(torch.int32).max
@@ -186,3 +188,68 @@ def _as_int64_bits(v: int) -> int:
     bits."""
     v = int(v) & 0xFFFFFFFFFFFFFFFF
     return v - (1 << 64) if v >= (1 << 63) else v
+
+
+# ---------------------------------------------------------------------------
+# LM kernels (repro.kernels.ref attention_ref, rwkv6_ref)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: Optional[int] = None,
+                  softcap: Optional[float] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Materialized-scores softmax attention with GQA, causal and
+    sliding-window masks and logit soft-capping, in f32; out in q's
+    dtype. q (B, H, Sq, D); k, v (B, Hkv, Sk, D); query head h reads KV
+    head h // (H // Hkv). The scores are materialized for one batch row
+    and one KV head's group of query heads at a time, so that the peak
+    stays at (H // Hkv) * Sq * Sk floats."""
+    B, H, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    group = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    rows = torch.arange(Sq, device=q.device)[:, None]
+    cols = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols > rows - window
+    out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+    for b in range(B):
+        for j in range(Hkv):
+            hs = slice(j * group, (j + 1) * group)
+            s = torch.matmul(q[b, hs].float(), k[b, j].float().t())
+            s.mul_(scale)
+            if softcap is not None:
+                s.div_(softcap).tanh_().mul_(softcap)
+            s.masked_fill_(~mask, NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            del s
+            out[b, hs] = torch.matmul(p, v[b, j].float()).to(q.dtype)
+    return out
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The sequential RWKV-6 recurrence in f32, vectorized over B and H;
+    out in r's dtype.
+
+      r, k, w: (B, H, T, K)   v: (B, H, T, V)   u: (H, K)
+      S_t = diag(w_t) S_{t-1} + k_t v_t^T          (state: K x V)
+      o_t = r_t (S_{t-1} + diag(u) k_t v_t^T)      (1 x V)
+    """
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    S = torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+    out = torch.empty((B, H, T, V), dtype=torch.float32, device=r.device)
+    for t in range(T):        # o_t = r_t S_{t-1} + (r_t . (u k_t)) v_t
+        out[:, :, t] = torch.matmul(rf[:, :, t, None, :], S)[:, :, 0]
+        S = torch.addcmul(wf[:, :, t, :, None] * S, kf[:, :, t, :, None],
+                          vf[:, :, t, None, :])
+    bonus = (rf * u.float()[None, :, None, :] * kf).sum(-1, keepdim=True)
+    return out.addcmul_(bonus, vf).to(r.dtype)

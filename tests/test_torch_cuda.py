@@ -478,3 +478,96 @@ def test_standard_route_on_card_equals_port_on_cpu(cuda, levels):
         host = FlatBag({c: a.cpu() for c, a in gpu[path].data.items()},
                        gpu[path].valid.cpu())
         chip_smoke.bags_bit_equal(cpu[path], host, str(path))
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels: flash_attention and rwkv6
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "rwkv6"])
+def test_lm_kernels_within_their_bound_and_counted(cuda, name):
+    """chip_smoke.py phase 2's LM edge cases: the kernel within the f32
+    rounding bound of its plain version (+1 bf16 ulp in bf16), two
+    launches bit-identical (``check_lm_kernel``), and one dispatch
+    through ``kernels.ops`` counted once."""
+    if name == "flash_attention":
+        cases = [((q, k, v), kw) for q, k, v, kw in
+                 chip_smoke.attention_edge_cases(cuda)]
+    else:
+        cases = [(a[:5], dict(chunk=a[5]))
+                 for a in chip_smoke.rwkv6_edge_cases(cuda)]
+    for args, kw in cases:
+        chip_smoke.check_lm_kernel(name, args, kw)
+    dispatch = TK.flash_attention if name == "flash_attention" \
+        else TK.rwkv6_scan
+    before = TK.launch_counts()[name]
+    dispatch(*cases[-1][0], **cases[-1][1])
+    assert TK.launch_counts()[name] == before + 1
+
+
+@pytest.mark.cuda
+def test_lm_kernels_repeat_bitwise_at_larger_shapes(cuda):
+    """Determinism over two launches at shapes with many blocks."""
+    from repro_torch.kernels import flash_attention as TFA
+    from repro_torch.kernels import rwkv6_scan as TRW
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    q = torch.randn(2, 8, 1000, 128, generator=g, device=cuda).bfloat16()
+    k = torch.randn(2, 4, 1000, 128, generator=g, device=cuda).bfloat16()
+    for kw in (dict(causal=True), dict(causal=True, window=300,
+                                       softcap=50.0)):
+        a = TFA.flash_attention_cuda(q, k, k, **kw)
+        assert torch.equal(a, TFA.flash_attention_cuda(q, k, k, **kw))
+    r = torch.randn(2, 16, 500, 64, generator=g, device=cuda)
+    w = torch.rand(2, 16, 500, 64, generator=g, device=cuda)
+    u = torch.randn(16, 64, generator=g, device=cuda)
+    a = TRW.rwkv6_cuda(r, r, r, w, u)
+    assert torch.equal(a, TRW.rwkv6_cuda(r, r, r, w, u))
+
+
+@pytest.mark.cuda
+def test_lm_wrappers_check_inputs(cuda):
+    from repro_torch.kernels import flash_attention as TFA
+    from repro_torch.kernels import rwkv6_scan as TRW
+    q = torch.zeros(1, 4, 8, 16, device=cuda)
+    with pytest.raises(TypeError):
+        TFA.flash_attention_cuda(q, q.double(), q)
+    with pytest.raises(ValueError):
+        TFA.flash_attention_cuda(q, q[:, :3], q[:, :3])
+    with pytest.raises(ValueError):
+        TFA.flash_attention_cuda(q.transpose(2, 3), q, q)
+    r = torch.zeros(1, 2, 8, 160, device=cuda)
+    with pytest.raises(ValueError, match="K=160"):
+        TRW.rwkv6_cuda(r, r, r, r, torch.zeros(2, 160, device=cuda))
+    r = torch.zeros(1, 2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="chunk"):
+        TRW.rwkv6_cuda(r, r, r, r, torch.zeros(2, 16, device=cuda), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "gemma2_27b"])
+def test_smoke_prefill_on_card_equals_port_on_cpu(cuda, arch):
+    """A smoke config's prefill in float32 with the kernels on the card
+    (one launch per layer) within 1e-4 x max |logit| of the port's plain
+    run on the CPU from the same weights."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke(arch).reduced(dtype="float32")
+    params = T.init_params(cfg, 0, device="cpu")
+    on_card = T.params_from_numpy(cfg, _as_numpy(params), device=cuda)
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 150)))
+    TK.reset_launch_counts()
+    got = T.prefill(cfg, on_card, tokens.to(cuda)).cpu()
+    name = "rwkv6" if arch == "rwkv6_7b" else "flash_attention"
+    assert TK.launch_counts()[name] == cfg.n_layers
+    want = T.prefill(cfg, params, tokens)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _as_numpy(tree):
+    if torch.is_tensor(tree):
+        return tree.numpy()
+    return {k: _as_numpy(v) for k, v in tree.items()}

@@ -49,6 +49,10 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.figures.biomedical\n"
         "import repro_torch.figures.succinct\n"
         "import repro_torch.figures.representation\n"
+        "import repro_torch.models.transformer, repro_torch.serve.engine\n"
+        "import repro_torch.configs, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.rwkv6_scan\n"
+        "import repro_torch.configs.gemma2_27b, repro_torch.configs.rwkv6_7b\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -95,11 +95,17 @@ def test_dispatch_counts_only_launches_and_refuses_other_devices():
         getattr(TK, name)(*args)
     for name, args in REDUCE:
         TK.segment_reduce(*args)
+    for q, k, v, kw in chip_smoke.attention_edge_cases(CPU, large=False):
+        TK.flash_attention(q, k, v, **kw)
+    for r, k, v, w, u, chunk in chip_smoke.rwkv6_edge_cases(CPU,
+                                                            large=False):
+        TK.rwkv6_scan(r, k, v, w, u, chunk)
     assert TK.launch_counts() == {
         "segment_reduce": 0, "segment_sum_first": 0, "merge_positions": 0, "gather_rows": 0,
         "rle_expand": 0, "delta_unpack": 0, "bitunpack": 0,
         "dict_gather": 0, "member_mask": 0, "pack_rows": 0,
-        "unpack_cols": 0, "replicate_scatter": 0}
+        "unpack_cols": 0, "replicate_scatter": 0, "flash_attention": 0,
+        "rwkv6": 0}
     meta = torch.zeros(4, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="meta"):
         TK.merge_positions(meta, meta)
