@@ -12,9 +12,10 @@ wrong or if there is no CUDA device. Phases:
   1 build      nvcc builds every kernel library from the checkout;
   2 kernels    each CUDA kernel against its plain PyTorch version on
                the card, bit for bit, over the edge cases;
-               flash_attention and rwkv6 within a first-order f32
-               rounding bound (+1 bf16 ulp in bf16), two launches
-               bit-identical;
+               flash_attention (both its tensor-core and its CUDA-core
+               path, with the tensor-core kernel's tile edges) and rwkv6
+               within a first-order f32 rounding bound (+1 bf16 ulp in
+               bf16), two launches bit-identical;
   A quickstart examples/quickstart.py's query with use_kernel=True
                matches the port's interpreter;
   B n2n TPC-H level 2, domain elimination on, at the SF10 order count:
@@ -134,7 +135,9 @@ wrong or if there is no CUDA device. Phases:
                the engine decodes step by step in PyTorch;
   L gemma2-27b the same for Gemma-2 27B (46 layers) at 1 x 8192 tokens,
                so that the 4096 window masks: flash_attention 46
-               launches, a record for a local and a global layer, with
+               launches, all on its tensor-core path, a record for a
+               local and a global layer (bounds by the tensor cores'
+               products and by the SFU's exponentials), with
                scaled_dot_product_attention without the softcap timed
                as a yardstick.
 
@@ -165,6 +168,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
+SFU_PER_S = 16 * 132 * 1.83e9  # H100 SXM transcendentals per second: 16
+#   a clock per SM (CUDA C++ Programming Guide, arithmetic instructions,
+#   compute capability 9.0) at the 1.83 GHz of the 989 TFLOP/s bf16 peak
 SCALE_B = 15_000_000           # orders in phase B: TPC-H SF10
 SCALE_C = 1_500_000            # orders in phase C: TPC-H SF1
 SCALE_D = 7_500_000            # orders in phases D and E: TPC-H SF5
@@ -2483,12 +2489,42 @@ ATTN_VARIANTS = [              # tests/test_kernels.py's flash variants
 ]
 
 
+# the tensor-core kernel's tiles: 64 query rows, 64 keys
+ATTN_TILE_VARIANTS = [
+    dict(causal=True),
+    dict(causal=False),
+    dict(causal=True, window=17),                  # within a tile
+    dict(causal=True, window=17, softcap=30.0),
+    dict(causal=True, window=100),                 # across tiles
+    dict(causal=False, window=100, softcap=50.0),
+    # scores large enough for tanh's exponential branch (|s / softcap|
+    # of 0.6 and more)
+    dict(causal=True, softcap=20.0, scale=1.0),
+    dict(causal=False, window=100, softcap=10.0, scale=1.0),
+]
+
+
+def attention_tile_shapes() -> list:
+    """(B, H, Hkv, Sq, Sk, D) at the tensor-core kernel's tile edges: Sq
+    and Sk at 64 and 128 +- 1 (and apart), D in {16, 64, 128, 256}, GQA
+    groups 1, 2 and 4."""
+    sizes = [(63, 63), (64, 64), (65, 65), (127, 127), (129, 129),
+             (65, 129), (129, 65)]
+    shapes = []
+    for i, (Sq, Sk) in enumerate(sizes):
+        for j, D in enumerate((16, 64, 128, 256)):
+            group = (1, 2, 4)[(i + j) % 3]
+            shapes.append((1 + (i + j) % 2, 2 * group, 2, Sq, Sk, D))
+    return shapes
+
+
 def attention_edge_cases(dev, large: bool = True) -> list:
     """(q, k, v, kwargs) for ``flash_attention``: the five variants of
     ``tests/test_kernels.py`` at its two shapes, f32 and bf16; with
     ``large``, each variant with GQA (8 query heads over 2 KV heads) at
     Sq = Sk = 97 for D in {64, 128, 256}, and Sq != Sk, window 1, one
-    KV head and multi-tile windows with a softcap."""
+    KV head and multi-tile windows with a softcap; and the tile edges of
+    ``attention_tile_shapes`` under ``ATTN_TILE_VARIANTS``."""
     rng = np.random.RandomState(11)
     shapes = [(1, 2, 2, 24, 24, 16), (2, 4, 2, 33, 33, 8)]
     extra = []
@@ -2500,6 +2536,9 @@ def attention_edge_cases(dev, large: bool = True) -> list:
                  ((1, 2, 2, 200, 200, 128), dict(causal=True, window=1)),
                  ((2, 4, 2, 300, 300, 128),
                   dict(causal=True, window=100, softcap=50.0))]
+        extra += [(s, kw) for s in attention_tile_shapes()
+                  for kw in ATTN_TILE_VARIANTS
+                  if not (kw.get("window") and s[3] - kw["window"] > s[4] - 1)]
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         todo = [(s, kw) for s in shapes for kw in ATTN_VARIANTS] + extra
@@ -2604,6 +2643,23 @@ def rwkv6_bound(r, k, v, w, u, chunk: int) -> torch.Tensor:
     return rel * M.double()
 
 
+def attention_work(q, k, causal=True, window=None) -> tuple:
+    """(unmasked pairs, flops, SFU results) of one attention call on this
+    data: 4 D flops per unmasked pair and head (Q.K^T and P.V), and one
+    exp per pair on the SFU. The softcap's tanh is not counted: it needs
+    no SFU (an odd polynomial on the FMA units, as the tensor-core kernel
+    computes it below 0.6), so counting it would flatter a kernel."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    rows = torch.arange(Sq, dtype=torch.int64)
+    hi = torch.clamp(rows, max=Sk - 1) if causal \
+        else torch.full_like(rows, Sk - 1)
+    lo = torch.clamp(rows - window + 1, min=0) if window \
+        else torch.zeros_like(rows)
+    pairs = B * H * int(torch.clamp(hi - lo + 1, min=0).sum())
+    return pairs, 4 * D * pairs, pairs
+
+
 def lm_kernel_fns(name: str, args: tuple, kw: dict):
     """(kernel, plain version, library call or None, library label,
     bound ms, 'bytes' or 'operations', bound note, tolerance) for one LM
@@ -2611,9 +2667,9 @@ def lm_kernel_fns(name: str, args: tuple, kw: dict):
     bytes moved (each input read once, the output written once) over
     3.35 TB/s and the operations the function needs on this data over
     the peak for their type: for attention 4 D flops per unmasked pair
-    and head at 989 TFLOP/s bf16 (495 f32) on the tensor cores; for
-    RWKV-6 the recurrence's own f32 work per step and (b, h) at 67
-    TFLOP/s: o = r.S (2 K V), S <- w*S + k v^T (3 K V) and the u bonus
+    and head at 989 TFLOP/s bf16 (495 f32) on the tensor cores, and its
+    exponentials on the SFU (``SFU_PER_S``); for RWKV-6 the
+    recurrence's own f32 work per step and (b, h) at 67 TFLOP/s: o = r.S (2 K V), S <- w*S + k v^T (3 K V) and the u bonus
     (3 K + 2 V), with no exponentials. The chunked form the kernel runs
     does more (its pairwise decays); its count is only noted."""
     from repro_torch.kernels import flash_attention as FA
@@ -2627,12 +2683,7 @@ def lm_kernel_fns(name: str, args: tuple, kw: dict):
         B, H, Sq, D = q.shape
         Sk, Hkv = k.shape[2], k.shape[1]
         rows = torch.arange(Sq, dtype=torch.int64)
-        hi = torch.clamp(rows, max=Sk - 1) if causal \
-            else torch.full_like(rows, Sk - 1)
-        lo = torch.clamp(rows - window + 1, min=0) if window \
-            else torch.zeros_like(rows)
-        pairs = int(torch.clamp(hi - lo + 1, min=0).sum())
-        flops = 4 * B * H * D * pairs
+        pairs, flops, exps = attention_work(q, k, causal, window)
         peak = 989e12 if q.dtype == torch.bfloat16 else 495e12
         nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
         kern = lambda: FA.flash_attention_cuda(  # noqa: E731
@@ -2654,9 +2705,13 @@ def lm_kernel_fns(name: str, args: tuple, kw: dict):
         label = ("scaled_dot_product_attention on the same shape and masks "
                  "without the softcap (a yardstick: no PyTorch call has "
                  "the softcap)")
-        bound_ops, bound_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+        bound_ops = max(flops / peak, exps / SFU_PER_S)
+        bound_bytes = nbytes / HBM_BYTES_PER_S
         tol = attention_bound(q, k, v, scale)
-        note = f"{pairs} unmasked pairs, {flops / 1e9:.1f} GFLOP"
+        note = (f"{pairs} unmasked pairs, {flops / 1e9:.1f} GFLOP: "
+                f"{flops / peak * 1e3:.4f} ms on the tensor cores, "
+                f"{exps / 1e9:.3f}G exponentials: "
+                f"{exps / SFU_PER_S * 1e3:.4f} ms on the SFU")
     else:
         r, k, v, w = (a.contiguous() for a in args[:4])
         u = args[4].float().contiguous()
@@ -2712,22 +2767,25 @@ def phase_lm_kernels(dev) -> None:
     edge cases against their plain versions: within the f32 rounding
     bound (``attention_bound``, ``rwkv6_bound``) plus one bf16 ulp of
     the output in bf16, and two launches bit-identical."""
-    worst = {}
-    n = 0
+    from repro_torch.kernels import flash_attention as FA
+    worst, n = {}, {}
     for q, k, v, kw in attention_edge_cases(dev):
         _, share, _ = check_lm_kernel("flash_attention", (q, k, v), kw)
-        worst["flash_attention"] = max(worst.get("flash_attention", 0),
-                                       share)
-        n += 1
+        key = ("flash_attention "
+               f"({FA.kernel_path(q.dtype, q.shape[-1]).replace('_', ' ')})")
+        worst[key] = max(worst.get(key, 0), share)
+        n[key] = n.get(key, 0) + 1
+    assert len(worst) == 2, worst         # both paths ran
     for args in rwkv6_edge_cases(dev):
         _, share, _ = check_lm_kernel("rwkv6", args[:5],
                                       dict(chunk=args[5]))
         worst["rwkv6"] = max(worst.get("rwkv6", 0), share)
-        n += 1
-    log(f"[2 kernels] {n} LM edge cases: flash_attention and rwkv6 within "
-        f"the f32 rounding bound of their plain versions (+1 bf16 ulp in "
-        f"bf16; worst {', '.join(f'{k} {s:.3g}' for k, s in worst.items())} "
-        f"of it); two launches bit-identical")
+        n["rwkv6"] = n.get("rwkv6", 0) + 1
+    log(f"[2 kernels] LM edge cases within the f32 rounding bound of their "
+        f"plain versions (+1 bf16 ulp in bf16), two launches "
+        f"bit-identical: "
+        + ", ".join(f"{k} {n[k]} cases, worst {worst[k]:.3g} of it"
+                    for k in worst))
 
 
 @contextlib.contextmanager
@@ -2843,6 +2901,9 @@ def measure_lm_kernel(name: str, args: tuple, kw: dict, launches: int,
                plain_device_ms=plain_dev, bound_ms=bound_ms, bound_by=by,
                library_ms=time_ms(library, iters=5) if library else None,
                shape=label)
+    if name == "flash_attention":
+        from repro_torch.kernels import flash_attention as FA
+        rec.update(path=FA.kernel_path(args[0].dtype, args[0].shape[-1]))
     shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
     log(f"  [{tag}] {name} ({label}) at {shapes} {args[0].dtype}, "
         f"{ {k: v for k, v in kw.items() if v is not None} }: within the "
@@ -2851,7 +2912,8 @@ def measure_lm_kernel(name: str, args: tuple, kw: dict, launches: int,
         f"({_ms(dev_ms)} on the device, session {dev_s}), plain "
         f"{rec['plain_ms']:.4f} ms ({_ms(plain_dev)} on the device, session "
         f"{plain_s}), bound {bound_ms:.4f} ms by {by} ({note}; "
-        f"{bound_ms / rec['ms']:.1%} of bound), library "
+        f"{bound_ms / rec['ms']:.1%} of bound; path "
+        f"{rec.get('path', 'cuda')}), library "
         f"{_ms(rec['library_ms']) + ' ms (' if library else '('}{lib_label}); "
         f"{launches} launches in the warm prefill")
     return rec
@@ -2997,16 +3059,22 @@ def phase_lm(tag: str, arch: str, B: int, S: int, kernel: str,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    from repro_torch.kernels import flash_attention as FA
     with capture_lm_calls() as calls:
         logits, cold_s, warm_ms, peak, _ = timed_calls(
             lambda: T.prefill(cfg, params, tokens))
         counts = kops.launch_counts()
+        paths = dict(FA.PATH_LAUNCHES)
     other = "rwkv6" if kernel == "flash_attention" else "flash_attention"
     log(f"[{tag}] prefill B={B} x S={S}: cold {cold_s:.3f} s, warm "
         f"{warm_ms:.1f} ms ({B * S / warm_ms * 1e3:.0f} tokens/s), peak "
         f"{peak / 2 ** 30:.2f} GiB above the weights; launches {kernel} "
-        f"{counts[kernel]}, {other} {counts[other]}")
+        f"{counts[kernel]}, {other} {counts[other]}; flash_attention by "
+        f"path: tensor cores {paths['tensor_cores']}, CUDA cores "
+        f"{paths['cuda_cores']}")
     assert counts[kernel] == expect and counts[other] == 0, counts
+    if kernel == "flash_attention":
+        assert paths == {"tensor_cores": expect, "cuda_cores": 0}, paths
     assert logits.shape == (B, cfg.vocab) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all())
     with plain_lm_kernels():

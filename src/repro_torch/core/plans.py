@@ -366,8 +366,8 @@ def eval_col_expr(e: N.Expr, bag: FlatBag,
         # may themselves be 64-bit labels, so shift-packing is unsound;
         # construction and lookup sides evaluate the same expression, so
         # equality is preserved (collision odds ~2^-64, DESIGN §7).
-        from repro_torch.exec.hashing import combine64
-        return combine64([eval_col_expr(v, bag, params).to(torch.int64)
+        from repro_torch.exec.hashing import combine64, to_int64_like_xla
+        return combine64([to_int64_like_xla(eval_col_expr(v, bag, params))
                           for _, v in e.captures])
     raise TypeError(f"eval_col_expr: {type(e).__name__} ({N.pretty(e)})")
 

@@ -4,8 +4,13 @@ The Pallas kernel's function: GQA, causal and sliding-window masks and
 logit soft-capping, f32 arithmetic, the output in q's dtype. The design
 note is in the CUDA source.
 
-``LAUNCHES`` counts the calls that launched the kernel (and nothing
-else), so a run can show that its path went through it.
+Two hand-written kernels, chosen by a rule in the C entry point: bf16
+with D a multiple of 16 runs on the tensor cores (P split into two bf16
+terms for the P.V products), everything else on the CUDA cores in f32.
+``kernel_path`` states the same rule, for counting.
+
+``PATH_LAUNCHES`` counts, per path, the calls that launched a kernel
+(and nothing else), so a run can show that its path went through it.
 """
 
 from __future__ import annotations
@@ -17,9 +22,25 @@ import torch
 
 from . import build
 
-LAUNCHES = 0
+PATH_LAUNCHES = {"tensor_cores": 0, "cuda_cores": 0}
 _FN = None
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_path(dtype: torch.dtype, D: int) -> str:
+    """The kernel a call runs, as ``flash_attention_launch`` picks it:
+    ``"tensor_cores"`` for bfloat16 with D a multiple of 16 (the mma
+    tile's depth), ``"cuda_cores"`` otherwise. float32 stays on the CUDA
+    cores: a bf16 split of f32 q and k would break the score term of the
+    rounding bound."""
+    if dtype == torch.bfloat16 and D % 16 == 0:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def reset_path_launches() -> None:
+    for path in PATH_LAUNCHES:
+        PATH_LAUNCHES[path] = 0
 
 
 def _fn():
@@ -90,13 +111,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_cuda: softcap {softcap}")
     check_masks(Sq, Sk, causal, window)
     scale = scale if scale is not None else D ** -0.5
+    path = kernel_path(q.dtype, D)
     out = torch.empty_like(q)
     fn = _fn()
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, H, Hkv, Sq, Sk, D, int(q.dtype == torch.bfloat16),
-                 int(bool(causal)), int(window or 0), float(scale),
-                 float(softcap or 0.0), build.stream_handle(dev))
+                 int(bool(causal)),
+                 int(window or 0), float(scale), float(softcap or 0.0),
+                 build.stream_handle(dev))
     build.check(err, "flash_attention")
-    build.bump(globals(), "LAUNCHES")
+    build.bump(PATH_LAUNCHES, path)
     return out

@@ -209,7 +209,8 @@ def launch_counts() -> dict:
             "pack_rows": shuffle_pack.PACK_LAUNCHES,
             "unpack_cols": shuffle_pack.UNPACK_LAUNCHES,
             "replicate_scatter": shuffle_pack.REPL_LAUNCHES,
-            "flash_attention": flash_attention_kernel.LAUNCHES,
+            "flash_attention": sum(
+                flash_attention_kernel.PATH_LAUNCHES.values()),
             "rwkv6": rwkv6_kernel.LAUNCHES}
 
 
@@ -226,5 +227,5 @@ def reset_launch_counts() -> None:
     shuffle_pack.PACK_LAUNCHES = 0
     shuffle_pack.UNPACK_LAUNCHES = 0
     shuffle_pack.REPL_LAUNCHES = 0
-    flash_attention_kernel.LAUNCHES = 0
+    flash_attention_kernel.reset_path_launches()
     rwkv6_kernel.LAUNCHES = 0

@@ -6,7 +6,8 @@ only PyTorch (the conftest's reference fixture then has to be left out):
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-The helpers at the top are shared with ``test_torch_kernels.py``.
+The helpers at the top are shared with ``test_torch_kernels.py``, and
+the float-key spec with the parity tests (``test_torch_queries.py``).
 """
 
 import os
@@ -93,6 +94,63 @@ def sweep_args(name, seed):
 
 
 # ---------------------------------------------------------------------------
+# a join on a float key (pid, w): the reference casts the second key
+# column with astype(uint64), so every negative w joins every other one
+# ---------------------------------------------------------------------------
+
+FK_PARTS = [{"pid": 1, "w": -5.0, "pname": 100},
+            {"pid": 1, "w": 2.0, "pname": 101}]
+FK_ORD = [{"oid": 1, "oparts": [{"pid": 1, "w": -3.0, "qty": 1.0},
+                                {"pid": 1, "w": 2.0, "qty": 4.0}]}]
+# the reference's answer, which the oracle does not give (-3.0 != -5.0)
+FK_REFERENCE_ROWS = [{"oid": 1, "parts": [{"pname": 100, "total": 1.0},
+                                          {"pname": 101, "total": 4.0}]}]
+
+FLOAT_KEY_VALUES = np.array(
+    [np.nan, 0.0, -0.0, -3.0, -5.0, 2.1, 2.9, 1e30, -1e30, np.inf, -np.inf,
+     2.0 ** 63, 2.0 ** 63 + 4096.0, 1.5 * 2.0 ** 63, 2.0 ** 64, -0.5, 0.5],
+    dtype=np.float64)
+
+
+def float_key_query(N):
+    """(query, input types): for o in Ord, SumBy_pname over the parts
+    joined on op.pid == p.pid && op.w == p.w, w REAL."""
+    part_t = N.bag(N.tuple_t(pid=N.INT, w=N.REAL, pname=N.INT))
+    ord_t = N.bag(N.tuple_t(
+        oid=N.INT, oparts=N.bag(N.tuple_t(pid=N.INT, w=N.REAL,
+                                          qty=N.REAL))))
+    Ord, Part = N.Var("Ord", ord_t), N.Var("Part", part_t)
+
+    def parts(o):
+        joined = N.for_in("op", o.oparts, lambda op:
+            N.for_in("p", Part, lambda p:
+                N.IfThen(N.BoolOp("&&", op.pid.eq(p.pid), op.w.eq(p.w)),
+                         N.Singleton(N.record(pname=p.pname,
+                                              total=op.qty)))))
+        return N.SumBy(joined, keys=("pname",), values=("total",))
+
+    Q = N.for_in("o", Ord, lambda o: N.Singleton(N.record(
+        oid=o.oid, parts=parts(o))))
+    return Q, {"Ord": ord_t, "Part": part_t}
+
+
+def float_key_data(n_orders: int, seed: int) -> dict:
+    """Parts over pids 0-3 and every w of FLOAT_KEY_VALUES; orders whose
+    parts draw pid and w from the same values and from their negatives,
+    NaN, infinities and truncated neighbours included."""
+    rng = np.random.RandomState(seed)
+    ws = FLOAT_KEY_VALUES
+    parts = [{"pid": p, "w": float(w), "pname": 100 + 20 * p + i}
+             for p in range(4) for i, w in enumerate(ws)]
+    draw = np.concatenate([ws, -ws, [2.5, -2.5, 7e29, 3.0]])
+    orders = [{"oid": o, "oparts": [
+        {"pid": int(rng.randint(0, 4)), "w": float(rng.choice(draw)),
+         "qty": float(rng.randint(1, 9))}
+        for _ in range(int(rng.randint(0, 6)))]} for o in range(n_orders)]
+    return {"Ord": orders, "Part": parts}
+
+
+# ---------------------------------------------------------------------------
 # kernels vs plain versions
 # ---------------------------------------------------------------------------
 
@@ -159,6 +217,65 @@ def test_slice_on_card_equals_port_on_cpu(cuda, domain_elimination):
         host = FlatBag({c: a.cpu() for c, a in gpu[name].data.items()},
                        gpu[name].valid.cpu())
         chip_smoke.bags_bit_equal(cpu[name], host, name)
+
+
+@pytest.mark.cuda
+def test_float_key_casts_on_card_equal_cpu(cuda):
+    """The XLA-like casts of float key columns and ``combine64`` over
+    them give on the card the bits they give on the CPU (which the
+    parity tests hold to the reference's)."""
+    from repro_torch.exec import hashing as H
+    x = np.concatenate([FLOAT_KEY_VALUES, -FLOAT_KEY_VALUES])
+    for dtype in (torch.float64, torch.float32):
+        cpu = torch.as_tensor(x).to(dtype)
+        gpu = cpu.to(cuda)
+        for f in (H.to_int64_like_xla, H.to_uint64_bits_like_xla):
+            assert torch.equal(f(gpu).cpu(), f(cpu)), (f.__name__, dtype)
+        cols = [cpu, cpu.flip(0), cpu.roll(5)]
+        assert torch.equal(H.combine64([c.to(cuda) for c in cols]).cpu(),
+                           H.combine64(cols)), dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unique", [False, True],
+                         ids=["general_join", "fk_join"])
+def test_float_key_spec_on_card(cuda, unique):
+    """The float-key join through the kernels on the card: the spec
+    gives the reference's rows, and orders over every edge value (NaN,
+    +-0.0, negatives, +-1e30, the infinities, [2^63, 2^64), 2.1 beside
+    2.9) give the bits of the port's plain run on the CPU."""
+    from repro_torch.columnar.table import FlatBag
+    from repro_torch.core import codegen as CG
+    from repro_torch.core import interpreter as I
+    from repro_torch.core import materialization as M
+    from repro_torch.core import nrc as N
+    from repro_torch.core.plans import ExecSettings
+    from repro_torch.core.unnesting import Catalog
+    q, types = float_key_query(N)
+    sp = M.shred_program(N.Program([N.Assignment("Q", q)]), types)
+    cp = CG.compile_program(sp, Catalog(
+        unique_keys={"Part__F": ("pid", "w")} if unique else {}))
+    man = sp.manifests["Q"]
+    for inputs, want in (({"Ord": FK_ORD, "Part": FK_PARTS},
+                          FK_REFERENCE_ROWS),
+                         (float_key_data(24, 0), None),
+                         (float_key_data(24, 1), None)):
+        gpu = CG.run_flat_program(
+            cp, CG.columnar_shred_inputs(inputs, types, device=cuda),
+            ExecSettings(use_kernel=True))
+        gpu = {n: FlatBag({c: a.cpu() for c, a in b.data.items()},
+                          b.valid.cpu()) for n, b in gpu.items()}
+        cpu = CG.run_flat_program(
+            cp, CG.columnar_shred_inputs(inputs, types, device="cpu"),
+            ExecSettings(use_kernel=False))
+        for name in cp.outputs:
+            chip_smoke.bags_bit_equal(cpu[name], gpu[name], name)
+        if want is not None:
+            rows = CG.parts_to_rows(
+                {(): gpu[man.top], **{p: gpu[n]
+                                      for p, n in man.dicts.items()}},
+                q.ty)
+            assert I.bags_equal(rows, want), rows
 
 
 # ---------------------------------------------------------------------------
@@ -504,6 +621,57 @@ def test_lm_kernels_within_their_bound_and_counted(cuda, name):
     before = TK.launch_counts()[name]
     dispatch(*cases[-1][0], **cases[-1][1])
     assert TK.launch_counts()[name] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", chip_smoke.attention_tile_shapes(),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_tile_edges_by_path(cuda, shape):
+    """The tensor-core kernel's tile edges (Sq and Sk at 64 and 128 +- 1,
+    D in {16, 64, 128, 256}, GQA groups 1, 2 and 4, windows within and
+    across tiles, with and without a softcap), in bf16 and f32: within
+    the bound of the plain version, two launches bit-identical, and each
+    launch counted on the path the rule gives (bf16 with D a multiple of
+    16: tensor cores; f32: CUDA cores)."""
+    from repro_torch.kernels import flash_attention as TFA
+    B, H, Hkv, Sq, Sk, D = shape
+    rng = np.random.RandomState(sum(shape))
+    for dtype, path in ((torch.bfloat16, "tensor_cores"),
+                        (torch.float32, "cuda_cores")):
+        q, k, v = (torch.as_tensor(rng.randn(B, h, s, D), dtype=dtype,
+                                   device=cuda)
+                   for h, s in ((H, Sq), (Hkv, Sk), (Hkv, Sk)))
+        for kw in chip_smoke.ATTN_TILE_VARIANTS:
+            if kw.get("window") and Sq - kw["window"] > Sk - 1:
+                continue
+            TK.reset_launch_counts()
+            chip_smoke.check_lm_kernel("flash_attention", (q, k, v), kw)
+            assert TFA.PATH_LAUNCHES == {path: 2, **{
+                p: 0 for p in TFA.PATH_LAUNCHES if p != path}}, \
+                (TFA.PATH_LAUNCHES, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_path_rule_on_the_card(cuda):
+    """bf16 with D not a multiple of 16 runs on the CUDA cores, and the
+    C entry point's rule, which picks the kernel, is the one that
+    ``kernel_path`` counts by, for every D and both dtypes."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as TFA
+    rule = build.load("flash_attention").flash_attention_uses_tensor_cores
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in range(1, 257):
+            assert bool(rule(int(dtype == torch.bfloat16), D)) == (
+                TFA.kernel_path(dtype, D) == "tensor_cores"), (dtype, D)
+    for dtype, D in ((torch.bfloat16, 8), (torch.bfloat16, 24),
+                     (torch.float32, 64)):
+        q = torch.randn(1, 2, 40, D, device=cuda).to(dtype)
+        TK.reset_launch_counts()
+        out = TK.flash_attention(q, q, q, causal=True)
+        assert TFA.PATH_LAUNCHES["cuda_cores"] == 1
+        assert TFA.PATH_LAUNCHES["tensor_cores"] == 0
+        chip_smoke.within(out, TR.attention_ref(q, q, q),
+                          chip_smoke.attention_bound(q, q, q))
 
 
 @pytest.mark.cuda

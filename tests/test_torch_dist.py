@@ -38,7 +38,8 @@ import torch
 
 from test_torch_env import assert_np_bag_equal
 from test_torch_queries import (build_query, diff_catalog, diff_types,
-                                flat_to_nested_query, fresh_start,
+                                flat_to_nested_query, float_key_data,
+                                float_key_query, fresh_start,
                                 nested_to_nested_query, quickstart,
                                 tpch_catalog, tpch_types)
 
@@ -455,8 +456,30 @@ def case_hypercube_bench(ns, rec):
              retraces=ns.CG.TRACE_STATS.get("traces", 0) - t0)
 
 
+def case_float_key(ns, rec):
+    """A join on a float key (pid, w REAL) through QueryService(mesh=...):
+    both sides are routed by mix64(key) % P, so a site sees the rows
+    whose keys the reference's casts make equal (NaN, -0.0 and every
+    negative w to 0, values beyond the range saturated)."""
+    fresh_start(ns.N)
+    q, types = float_key_query(ns.N)
+    data = float_key_data(48, seed=5)
+    prog = ns.N.Program([ns.N.Assignment("Q", q)])
+    env = _pad(ns.shred(data, types))
+    svc = ns.QueryService(types, catalog=ns.Catalog(), mesh=ns.mesh(PN),
+                          dist_kwargs=dict(cap_factor=16.0))
+    out = svc.execute(prog, env)
+    rows = svc.unshred(prog, env, out, "Q")
+    rec.bags("float_key_service", out)
+    # the reference's answer is not the oracle's; the port gives the same
+    rec.fact("float_key_service", metrics=svc.last_metrics,
+             shuffle_stats=dict(ns.D.SHUFFLE_STATS),
+             matches_oracle=ns.I.bags_equal(ns.I.eval_expr(q, data), rows))
+
+
 GROUPS = (case_running, case_exchange, case_sum_dedup, case_elision,
-          case_join_sum_by, case_differential, case_skew_bench, case_hypercube_bench)
+          case_join_sum_by, case_differential, case_skew_bench,
+          case_hypercube_bench, case_float_key)
 CASES = (["running_skew0", "running_skew1", "exchange_cap16",
           "exchange_hot_cap1", "exchange_hot_cap8", "exchange_hot_cap7",
           "exchange_hot_adaptive", "exchange_kernel", "sum_dedup",
@@ -466,7 +489,7 @@ CASES = (["running_skew0", "running_skew1", "exchange_cap16",
          + [f"differential{i}" for i in range(5)]
          + ["skew_auto", "skew_off", "skew_always", "skew_rebind",
             "skew_service", "hc_hypercube", "hc_cascade", "hc_rebind",
-            "hc_service"])
+            "hc_service", "float_key_service"])
 
 
 def run_cases(ns, reset) -> Recorder:

@@ -110,6 +110,87 @@ def test_attention_ref_gqa_and_unequal_lengths():
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core kernel's error model
+# ---------------------------------------------------------------------------
+
+def split_p_attention(q, k, v, causal=True, window=None, softcap=None,
+                      scale=None, terms=2) -> torch.Tensor:
+    """``attention_ref``'s arithmetic in f32 with P.V as the tensor-core
+    kernel does it: P (f32) split into hi = bf16(P) and lo = bf16(P -
+    hi), (hi.V + lo.V) / l with the row sums l from the f32 P (``terms``
+    = 1: hi alone). Q.K^T of bf16 inputs is the same f32 product as in
+    ``attention_ref`` (every bf16 x bf16 product is exact in f32). Out
+    in f32."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    kf = k.float().repeat_interleave(H // Hkv, dim=1)
+    vf = v.float().repeat_interleave(H // Hkv, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    rows = torch.arange(Sq)[:, None]
+    cols = torch.arange(Sk)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols > rows - window
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float() if terms == 2 else torch.zeros_like(p)
+    return (torch.matmul(hi, vf) + torch.matmul(lo, vf)) / p.sum(-1, True)
+
+
+TC_EDGE = [c for c in ATTN_EDGE
+           if TFA.kernel_path(c[0].dtype, c[0].shape[-1]) == "tensor_cores"]
+
+
+@pytest.mark.parametrize("case", range(0, len(TC_EDGE), 2))
+def test_split_p_within_a_quarter_of_the_bound(case):
+    """Every second of chip_smoke.py's flash edge cases that the tensor
+    cores take: their arithmetic (bf16-exact Q.K^T, P.V as hi.V + lo.V)
+    stays within a quarter of ``chip_smoke.attention_bound`` of the plain
+    version's f32 result, so that the kernel keeps the f32 contract with
+    room for its own summation order."""
+    q, k, v, kw = TC_EDGE[case]
+    want = TR.attention_ref(q.float(), k.float(), v.float(), **kw)
+    got = split_p_attention(q, k, v, **kw)
+    bound = chip_smoke.attention_bound(q, k, v, kw.get("scale"))
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= bound / 4, (err, bound)
+
+
+def test_one_bf16_rounding_of_p_breaks_the_bound():
+    """The control: P.V with hi alone (P rounded once to bf16) leaves the
+    bound on half of the cases at the default scale (the cases with
+    scale 1 have scores, and so a bound, large enough to hide it)."""
+    cases = [c for c in TC_EDGE if "scale" not in c[3]][::4]
+    over = 0
+    for q, k, v, kw in cases:
+        want = TR.attention_ref(q.float(), k.float(), v.float(), **kw)
+        got = split_p_attention(q, k, v, terms=1, **kw)
+        bound = chip_smoke.attention_bound(q, k, v, kw.get("scale"))
+        over += float((got.double() - want.double()).abs().max()) > bound
+    assert over >= len(cases) // 2, (over, len(cases))
+
+
+def test_kernel_path_rule():
+    """bf16 with D a multiple of 16 takes the tensor cores; f32 and bf16
+    with any other D the CUDA cores."""
+    assert TFA.kernel_path(torch.bfloat16, 128) == "tensor_cores"
+    assert TFA.kernel_path(torch.bfloat16, 16) == "tensor_cores"
+    assert TFA.kernel_path(torch.bfloat16, 256) == "tensor_cores"
+    for dtype, D in ((torch.float32, 128), (torch.float32, 16),
+                     (torch.bfloat16, 8), (torch.bfloat16, 24),
+                     (torch.bfloat16, 100)):
+        assert TFA.kernel_path(dtype, D) == "cuda_cores", (dtype, D)
+    kinds = {TFA.kernel_path(q.dtype, q.shape[-1]) for q, *_ in ATTN_EDGE}
+    assert kinds == {"tensor_cores", "cuda_cores"}
+
+
+# ---------------------------------------------------------------------------
 # rwkv6_ref
 # ---------------------------------------------------------------------------
 

@@ -27,6 +27,7 @@ from repro_torch.exec import ops as TX
 from repro_torch.obs import reset_telemetry
 
 from test_torch_env import assert_bag_parity
+from test_torch_queries import FLOAT_KEY_VALUES
 
 
 @pytest.fixture(autouse=True)
@@ -304,6 +305,118 @@ def test_joins_with_every_row_invalid_and_tiny_sides():
         assert int(wof) == int(gof) == 0
         assert_bag_parity(RX.sum_by(left, ("k",), ("v",), use_kernel=uk),
                           TX.sum_by(tleft, ("k",), ("v",), use_kernel=uk))
+
+
+# ---------------------------------------------------------------------------
+# float key columns: the reference's XLA casts, astype(int64) on the first
+# key column and astype(uint64) on the later ones (NaN to 0, saturating;
+# uint64 also sends every negative value to 0)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_float_casts_and_combine64_match_xla(dtype):
+    x = FLOAT_KEY_VALUES.astype(dtype)
+    tx = torch.from_numpy(x)
+    assert np.array_equal(TH.to_int64_like_xla(tx).numpy(),
+                          np.asarray(jnp.asarray(x).astype(jnp.int64)))
+    assert np.array_equal(
+        TH.to_uint64_bits_like_xla(tx).numpy(),
+        np.asarray(jnp.asarray(x).astype(jnp.uint64)).view(np.int64))
+    i = np.arange(x.size, dtype=np.int64)
+    for cols in ([x], [i, x], [x, i], [x, x[::-1].copy()]):
+        want = np.asarray(RH.combine64([jnp.asarray(c) for c in cols]))
+        got = TH.combine64([torch.from_numpy(c) for c in cols])
+        assert np.array_equal(want, got.numpy())
+
+
+def float_probe_bag():
+    """Probe keys (k INT, x REAL, y REAL): NaN, -0.0, truncation (2.1 and
+    2.9), negatives, out of the int64 range, and [2^63, 2^64)."""
+    x = np.array([np.nan, -0.0, 2.1, -3.0, 1e300, -np.inf, np.inf, 2.0 ** 63,
+                  -2.5, 9.0, 0.7, -2.9, 2.0 ** 63 + 4096.0, 1e30],
+                 dtype=np.float64)
+    y = np.array([-3.0, np.nan, 2.5, 2.0 ** 63 + 4096.0, 1e30, np.inf, -0.0,
+                  -1e30, 9.9, 2.0 ** 64, 0.0, -5.0, 1.5 * 2.0 ** 63, 2.9],
+                 dtype=np.float64)
+    n = x.size
+    cols = {"k": np.ones(n, np.int64), "x": x, "y": y,
+            "v": np.arange(n, dtype=np.float64)}
+    valid = np.ones(n, bool)
+    valid[10] = False
+    return both(cols, valid)
+
+
+def float_build_bag():
+    """Build keys, unique under the reference's casts of x alone and of
+    (k, y): x to [0, 2, -3, INT64_MAX, INT64_MIN, 9], y to [0, 2,
+    2^63 + 4096, all ones, 9, 2^63 * 1.5]."""
+    x = np.array([0.5, 2.9, -3.0, 1e30, -1e30, 9.0], dtype=np.float64)
+    y = np.array([-5.0, 2.0, 2.0 ** 63 + 4096.0, 7e29, 9.0, 1.5 * 2.0 ** 63],
+                 dtype=np.float64)
+    cols = {"k": np.ones(x.size, np.int64), "x": x, "y": y,
+            "rw": np.arange(10, 10 + x.size, dtype=np.float64)}
+    return both(cols, np.ones(x.size, bool))
+
+
+FLOAT_KEYS = [(("x",), ("x",)), (("k", "y"), ("k", "y")),
+              (("y", "x"), ("y", "x"))]
+
+
+@pytest.mark.parametrize("use_kernel,order_aware", CONFIGS, ids=IDS)
+@pytest.mark.parametrize("how", ["inner", "left_outer"])
+def test_fk_join_on_float_keys(use_kernel, order_aware, how):
+    left, tleft = float_probe_bag()
+    right, tright = float_build_bag()
+    with order_awareness(order_aware):
+        for lk, rk in FLOAT_KEYS[:2]:
+            want = RX.fk_join(left, right, lk, rk, how=how,
+                              right_prefix="r_", use_kernel=use_kernel)
+            got = TX.fk_join(tleft, tright, lk, rk, how=how,
+                             right_prefix="r_", use_kernel=use_kernel)
+            assert_bag_parity(want, got)
+    assert_sort_stats_equal()
+
+
+@pytest.mark.parametrize("use_kernel,order_aware", CONFIGS, ids=IDS)
+@pytest.mark.parametrize("how", ["inner", "left_outer"])
+def test_general_join_on_float_keys(use_kernel, order_aware, how):
+    left, tleft = float_probe_bag()
+    right, tright = float_build_bag()
+    with order_awareness(order_aware):
+        for lk, rk in FLOAT_KEYS:
+            # the probe side against itself: many-to-many matches
+            for r, tr in ((right, tright), (left, tleft)):
+                want, wof = RX.general_join(left, r, lk, rk, 64, how=how,
+                                            right_prefix="r_",
+                                            use_kernel=use_kernel)
+                got, gof = TX.general_join(tleft, tr, lk, rk, 64, how=how,
+                                           right_prefix="r_",
+                                           use_kernel=use_kernel)
+                assert_bag_parity(want, got)
+                assert int(gof) == int(wof)
+    assert_sort_stats_equal()
+
+
+def test_new_label_over_float_captures_matches_reference():
+    """N.NewLabel casts every capture with astype(int64) before
+    combine64 (so its later uint64 cast only reinterprets the bits)."""
+    from repro.core import nrc as RN
+    from repro.core.plans import eval_col_expr as r_eval
+    from repro_torch.core import nrc as TN
+    from repro_torch.core.plans import eval_col_expr as t_eval
+    ref, port = float_probe_bag()
+
+    def labels(N):
+        k, x, y = N.Var("k", N.INT), N.Var("x", N.REAL), N.Var("y", N.REAL)
+        return [N.NewLabel("L", (("a", x),)),
+                N.NewLabel("L", (("a", k), ("b", y))),
+                N.NewLabel("L", (("a", y), ("b", x), ("c", k)))]
+
+    for re_, te in zip(labels(RN), labels(TN)):
+        want = np.asarray(r_eval(re_, ref, None))
+        got = t_eval(te, port, None).numpy()
+        assert got.dtype == want.dtype == np.int64
+        assert np.array_equal(got, want), RN.pretty(re_)
 
 
 def test_union_all():

@@ -24,6 +24,10 @@ from repro_torch.obs import reset_telemetry
 from repro_torch.core import nrc as TN
 from repro_torch.figures import common as FC
 
+from test_torch_cuda import (FK_ORD, FK_PARTS, FK_REFERENCE_ROWS,  # noqa: F401
+                             FLOAT_KEY_VALUES, float_key_data,
+                             float_key_query)
+
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 

@@ -36,9 +36,11 @@ from repro_torch.exec import ops as TX
 from repro_torch.obs import reset_telemetry
 
 from test_torch_env import assert_env_parity, port_env
-from test_torch_queries import (QS_COP, QS_PARTS, build_query, build_query3,
+from test_torch_queries import (FK_ORD, FK_PARTS, FK_REFERENCE_ROWS, QS_COP,
+                                QS_PARTS, build_query, build_query3,
                                 diff_catalog, diff_types, diff_types3,
-                                flat_to_nested_query, fresh_start,
+                                flat_to_nested_query, float_key_data,
+                                float_key_query, fresh_start,
                                 nested_to_nested_query, quickstart,
                                 tpch_catalog, tpch_types)
 
@@ -196,6 +198,54 @@ def test_tpch_general_join_interpret(reference_kernels):
     tout = TCG.run_flat_program(tcp, port_env(renv),
                                 TP.ExecSettings(use_kernel=True))
     outputs_equal(rout, tout, rcp.outputs)
+
+
+# ---------------------------------------------------------------------------
+# a float join key: the reference's casts (astype(int64) on the first key
+# column, astype(uint64) on the later ones), and so its answer
+# ---------------------------------------------------------------------------
+
+def _run_float_key(inputs, catalog_of, use_kernel):
+    (rq, rsp, rcp), (tq, tsp, tcp) = compile_both(
+        lambda N: float_key_query(N)[0], lambda N: float_key_query(N)[1],
+        catalog_of)
+    renv = RCG.columnar_shred_inputs(inputs, float_key_query(RN)[1])
+    tenv = TCG.columnar_shred_inputs(inputs, float_key_query(TN)[1],
+                                     device="cpu")
+    assert_env_parity(renv, tenv)
+    rout = RCG.run_flat_program(rcp, renv, RP.ExecSettings(use_kernel))
+    tout = TCG.run_flat_program(tcp, tenv, TP.ExecSettings(use_kernel))
+    outputs_equal(rout, tout, rcp.outputs)
+    counters_equal()
+    return tq, nested_rows(TCG, tsp, tout, tq)
+
+
+@pytest.mark.parametrize("unique", [False, True],
+                         ids=["general_join", "fk_join"])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_float_key_spec_matches_reference(reference_kernels, use_kernel,
+                                          unique):
+    """Parts (1, -5.0, 100), (1, 2.0, 101) joined on (pid, w) by an
+    order's parts (1, -3.0), (1, 2.0): the reference casts w to uint64,
+    so -3.0 and -5.0 both become 0 and join. The port gives the
+    reference's answer, which is not the oracle's (a gap of the
+    reference, matched as the f2n gap is)."""
+    reference_kernels("oracle")
+    inputs = {"Ord": FK_ORD, "Part": FK_PARTS}
+    tq, got = _run_float_key(
+        inputs, lambda C: C(unique_keys={"Part__F": ("pid", "w")}
+                            if unique else {}), use_kernel)
+    assert TI.bags_equal(got, FK_REFERENCE_ROWS)
+    assert not TI.bags_equal(TI.eval_expr(tq, inputs), got)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_float_keys_with_edge_values_match_reference(reference_kernels,
+                                                     seed):
+    """Orders whose part keys hold NaN, +-0.0, negatives, +-1e30, the
+    infinities, values in [2^63, 2^64) and 2.1 beside 2.9."""
+    reference_kernels("oracle")
+    _run_float_key(float_key_data(24, seed), lambda C: C(), True)
 
 
 # ---------------------------------------------------------------------------
