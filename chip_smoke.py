@@ -11,11 +11,14 @@ wrong or if there is no CUDA device. Phases:
   0 device     the card's name, and nvidia-smi's name and power limit;
   1 build      nvcc builds every kernel library from the checkout;
   2 kernels    each CUDA kernel against its plain PyTorch version on
-               the card, bit for bit, over the edge cases;
+               the card, bit for bit, over the edge cases (segment_reduce's
+               with its 2048-row tiles' edges, d = 1 to 5);
                flash_attention (both its tensor-core and its CUDA-core
                path, with the tensor-core kernel's tile edges) and rwkv6
-               within a first-order f32 rounding bound (+1 bf16 ulp in
-               bf16), two launches bit-identical;
+               (its one path, the tensor cores, with T around multiples
+               of its 16-step sub-chunk and of the chunk) within a
+               first-order f32 rounding bound (+1 bf16 ulp in bf16), two
+               launches bit-identical, the worst share per path;
   A quickstart examples/quickstart.py's query with use_kernel=True
                matches the port's interpreter;
   B n2n TPC-H level 2, domain elimination on, at the SF10 order count:
@@ -114,18 +117,26 @@ wrong or if there is no CUDA device. Phases:
                858,994 segments (the reference's 20,000 rows per 256
                groups, scaled) and (b) SF10's 60,013,298 lineitems by
                their 7,500,000 parts, d = 1 and 4: every launch counter
-               zeroed first; bit-exact against the plain version on
-               integer values, within 2 n_s 2^-24 sum|x| of a float64 sum
-               on random ones with two launches bit-identical; timed;
+               zeroed first, the kernels of one call at (a) profiled (at
+               most two: the tile and carry passes); bit-exact against
+               the plain version on integer values, within 2 n_s 2^-24
+               sum|x| of a float64 sum on random ones with two launches
+               bit-identical; timed beside torch.segment_reduce given the
+               run lengths (events and device time);
   K rwkv6-7b   RWKV-6 7B at full width and depth (32 layers) in bf16
                with seeded random weights: prefill of 4 x 4096 tokens
                cold, then warm with every launch counter zeroed (rwkv6
-               32 launches, flash_attention none), peak memory; the
+               32 launches, by path all on the tensor cores,
+               flash_attention none), peak memory; the
                logits against the same prefill with the plain versions
                swapped in (LOGIT_BOUND), and as controls the logits
                with two faults put into the kernel's calls; rwkv6 at
                its captured arguments (within its rounding bound, timed
-               beside its plain version and its bound); a profiled warm
+               beside its plain version and its bound: the bytes, the
+               chunked form's products on the tensor cores and its logs
+               and powers of 2 on the SFU, with the earlier bound, the
+               recurrence's own f32 work, beside it);
+               a profiled warm
                prefill; ServeEngine for 4 requests (prompts 16-64, 16
                new) in bf16 (decode tokens/s, peak, a profiled decode
                step) and in float32 at 2 layers (its tokens equal to
@@ -146,8 +157,9 @@ JSON records (phase B's join kernels; D0's decode kernels with D's
 launch counts, bitunpack's from D0 since no column of this data picks
 bitpack; F's member_mask, pack_rows and unpack_cols; G's
 replicate_scatter; J's segment_reduce at (a) and at (b) with d = 4; K's
-rwkv6; L's flash_attention at a local and a global layer), and
-``{"ok": true, "device": ...}``.
+rwkv6; L's flash_attention at a local and a global layer; each with the
+library call's device time where there is one, and with its path where
+it has one), and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -693,20 +705,52 @@ def complete_profile(run, iters: int = 1, tries: int = 4):
     return records, complete, attempt + 1
 
 
-def device_ms(fn, iters: int = 20):
-    """Device time per call: the time of every kernel and copy that
-    ``fn`` puts on the card, summed by ``torch.profiler`` over ``iters``
-    calls. Unlike CUDA events around back-to-back calls, it leaves out
-    the host's time between launches, which sets the pace of calls
-    that take a few microseconds on the card. Returns (ms, or None (not
-    measured) when no session of the profiler was complete; sessions)."""
-    fn()
+def device_ms(fns: list, iters: list, tries: int = 4):
+    """Device time per call of each function of ``fns`` (None where a
+    function is None): the time of every kernel and copy that it puts on
+    the card, summed by ``torch.profiler`` over its ``iters`` calls. All
+    of them run in one session, so that an incomplete session is
+    repeated once for all (with idle time around it, as
+    ``complete_profile`` does); a spin kernel (``torch.cuda._sleep``)
+    after each function's calls splits the device records, in their
+    order on the card, between the functions, and a session counts as
+    complete only where each function has kernel records and each of its
+    kernels comes its ``iters`` times over (the host records no launch of
+    the ctypes-bound kernels, so that is what shows a lost record of
+    theirs; a function whose records are all lost leaves an empty part). Unlike CUDA events
+    around back-to-back calls, it leaves out the host's time between
+    launches, which sets the pace of calls that take a few microseconds
+    on the card. Returns (the times, or None each (not measured) when no
+    session of the profiler was complete; sessions)."""
+    from collections import Counter
+    live = [(f, n) for f, n in zip(fns, iters) if f is not None]
+    for f, _ in live:
+        f()
     torch.cuda.synchronize()
-    records, complete, sessions = complete_profile(fn, iters)
-    if not complete:
-        return None, sessions
-    return (sum(e.time_range.elapsed_us() for e in records) / iters / 1e3,
-            sessions)
+
+    def run():
+        for f, n in live:
+            for _ in range(n):
+                f()
+            torch.cuda._sleep(1000)
+
+    for attempt in range(tries):
+        records, complete = profiled(run, pad_s=float(attempt))
+        parts, us, names = [], 0.0, Counter()
+        for e in sorted(records, key=lambda e: e.time_range.start):
+            if "spin_kernel" in e.name:
+                parts.append((us, names))
+                us, names = 0.0, Counter()
+            else:
+                us += e.time_range.elapsed_us()
+                if not e.name.startswith(("Memcpy", "Memset")):
+                    names[e.name] += 1
+        if complete and len(parts) == len(live) and all(
+                us > 0 and cnt and all(c % n == 0 for c in cnt.values())
+                for (us, cnt), (_, n) in zip(parts, live)):
+            ms = iter(us / n / 1e3 for (us, _), (_, n) in zip(parts, live))
+            return [None if f is None else next(ms) for f in fns], attempt + 1
+    return [None] * len(fns), tries
 
 
 def _ms(t) -> str:
@@ -781,8 +825,8 @@ def measure_kernels(captured: dict, launches: dict, tag: str,
                                f"version at {tag}'s shapes (max |err| " \
                                f"{err})"
         del got, want
-        dev, dev_s = device_ms(kern)
-        plain_dev, plain_dev_s = device_ms(plain)
+        (dev, plain_dev, lib_dev), dev_s = device_ms(
+            [kern, plain, library], [20, 20, 20])
         rec = dict(name=name, route="cuda", source=meta["source"],
                    replaces=meta["replaces"], launches=launches[name],
                    max_abs_err=err, ms=time_ms(kern),
@@ -790,15 +834,17 @@ def measure_kernels(captured: dict, launches: dict, tag: str,
                    plain_device_ms=plain_dev,
                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                    bound_by="bytes",
-                   library_ms=time_ms(library) if library else None)
+                   library_ms=time_ms(library) if library else None,
+                   library_device_ms=lib_dev)
         shapes = [tuple(a.shape) if torch.is_tensor(a) else a
                   for a in args]
         log(f"  [{tag}] {name} at {shapes}: "
             f"{'bit-exact' if err == 0 else 'within bound'}; kernel "
             f"{rec['ms']:.4f} ms ({_ms(dev)} on the device, profile session "
             f"{dev_s}), plain {rec['plain_ms']:.4f} ms ({_ms(plain_dev)} on "
-            f"the device, session {plain_dev_s}), library "
-            f"{rec['library_ms'] if library else 'n/a'} ms, bound "
+            f"the device), library "
+            f"{rec['library_ms'] if library else 'n/a'} ms ("
+            f"{_ms(lib_dev) if library else 'n/a'} on the device), bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.1%} "
             f"of bound), {rec['launches']} launches in the run")
         recs.append(rec)
@@ -931,14 +977,43 @@ def reduce_edge_cases(dev, large: bool = True) -> list:
     case(np.zeros(0), 4, 3)                           # n = 0
     case([0, 0, -1, 0, 1, 1, 7, 1, 2, -1], 3, 2)      # invalid between
     if large:
-        for n, S, hi in [(70000, 70000, 30000),       # a thread per range
-                         (200000, 3000, 2999),        # a warp per range
-                         (70000, 100, 2)]:            # a block per range
+        for n, S, hi in [(70000, 70000, 30000),       # short ranges
+                         (200000, 3000, 2999),        # medium ranges
+                         (70000, 100, 2)]:            # long ranges
             seg = np.sort(rng.randint(0, hi + 1, n))
             holes = rng.rand(n) < 0.05
             seg[holes] = rng.choice([-1, S, S + 5], int(holes.sum()))
             case(seg, S, 2)
+        for seg, S in reduce_tile_edges(rng):
+            for d in range(1, 6):
+                case(seg, S, d)
     return cases
+
+
+def reduce_tile_edges(rng) -> list:
+    """(seg_ids, S) at the edges of segment_reduce's 2048-row tiles (its
+    carry records join the runs that cross them): a segment ending
+    exactly at a tile's end and one straddling two tiles; one spanning
+    41 tiles (more than the carry pass's 32-tile batch); out-of-range
+    rows at tiles' first and last rows; 35 tiles without an in-range row
+    between two that have one, and such tiles first and last; empty
+    segments before, between and after tiles; a tail tile."""
+    from repro_torch.kernels.segment_reduce import TILE_ROWS as T
+
+    def runs(*spec):
+        return np.concatenate([np.full(n, s) for s, n in spec])
+
+    edges = rng.randint(0, 150, 3 * T + 10)
+    edges = np.sort(edges)
+    for at, bad in [(0, -1), (T - 1, -1), (T, 150), (2 * T - 1, 153),
+                    (2 * T, -1), (3 * T + 9, -1)]:
+        edges[at] = bad
+    return [(runs((2, T), (3, T - 5), (5, T + 5), (7, 300)), 10),
+            (runs((0, 100), (1, 40 * T + 17), (2, 50)), 4),
+            (edges, 150),
+            (runs((1, 1000), (-1, 35 * T), (4, 3000)), 6),
+            (runs((-1, 3 * T), (2, 10), (-1, 2 * T)), 4),
+            (np.sort(rng.randint(0, 3 * T, 5 * T + 123)), 3 * T)]
 
 
 def decode_edge_cases(dev, large: bool = True) -> list:
@@ -2461,6 +2536,22 @@ def phase_representation(cols: dict, seed: int, dev,
     log(f"[J segment_reduce] dispatch at (a) n={n_a}, S={S_a}, d=1 and (b) "
         f"n={n_b}, S={S_b}, d=1 and 4: launches {counts}")
     assert counts["segment_reduce"] == len(shapes), counts
+    # at most two kernels a call: a session counts only where both of
+    # them show (the host records no launch of a ctypes-bound kernel, so
+    # a lost record can hide only in the kernels' own names)
+    vals, seg, S = shapes["a"]
+    for sessions in range(1, 7):
+        records, complete = profiled(
+            lambda: kops.segment_reduce(vals, seg, S), pad_s=sessions - 1.0)
+        launched = sorted(e.name.split("(")[0] for e in records
+                          if not e.name.startswith(("Memcpy", "Memset")))
+        seen = complete and {"sr_carry", "void sr_tile<1>"} <= set(launched)
+        if seen:
+            break
+    log(f"[J segment_reduce] kernels of one call at (a) (profile session "
+        f"{sessions}, {'both seen' if seen else 'INCOMPLETE'}): "
+        f"{launched}")
+    assert seen and len(launched) <= 2, launched
     recs = []
     for label, (vals, seg, S) in shapes.items():
         tag = f"J segment_reduce ({label})"
@@ -2468,6 +2559,7 @@ def phase_representation(cols: dict, seed: int, dev,
         got = measure_kernels({"segment_reduce": (vals, seg, S)}, counts,
                               tag)
         for rec in got:
+            rec["path"] = "cuda_cores"
             rec["launches_in"] = "J segment_reduce dispatch"
             rec["shape"] = f"({label}) n={seg.numel()}, d={vals.shape[1]}, S={S}"
         if label != "b d=1":
@@ -2553,7 +2645,10 @@ def attention_edge_cases(dev, large: bool = True) -> list:
 def rwkv6_edge_cases(dev, large: bool = True) -> list:
     """(r, k, v, w, u, chunk) for ``rwkv6``: T a multiple of the chunk
     and not, T below the chunk, K != V, decays near 0 and near 1, f32
-    and bf16; with ``large``, K = V = 128 and a longer T."""
+    and bf16; with ``large``, K = V = 128, a longer T, T around
+    multiples of 16 (the kernel's sub-chunk) and of the chunk, chunks
+    of 16, 32 and 48, and K, V not multiples of 16 (rows of 24 and 40
+    bytes: not copied 16 bytes at a time)."""
     rng = np.random.RandomState(12)
     shapes = [(1, 2, 40, 8, 8, 16), (2, 2, 37, 8, 8, 4),
               (1, 2, 100, 64, 64, 64), (1, 1, 10, 16, 16, 64),
@@ -2561,6 +2656,11 @@ def rwkv6_edge_cases(dev, large: bool = True) -> list:
     if large:
         shapes += [(2, 3, 300, 64, 64, 64), (1, 2, 130, 128, 128, 64),
                    (1, 2, 130, 128, 32, 32)]
+        # T around multiples of the 16-step sub-chunk and of the chunk
+        shapes += [(1, 2, T, 64, 64, 64) for T in (15, 16, 17, 63, 64, 65,
+                                                   129)]
+        shapes += [(1, 2, 33, 64, 32, 32), (1, 2, 47, 16, 16, 16),
+                   (1, 2, 40, 24, 40, 48), (1, 1, 21, 12, 20, 16)]
     decays = {"mid": lambda s: 0.2 + 0.79 * rng.rand(*s),
               "near0": lambda s: 10.0 ** rng.uniform(-9, -3, s),
               "near1": lambda s: 1.0 - 10.0 ** rng.uniform(-6, -3, s)}
@@ -2660,6 +2760,43 @@ def attention_work(q, k, causal=True, window=None) -> tuple:
     return pairs, 4 * D * pairs, pairs
 
 
+def rwkv6_earlier_bound_ms(r, v) -> float:
+    """The earlier bound of ``rwkv6``, kept beside the new one: the larger of
+    the bytes and the recurrence's own f32 work, 5 K V + 3 K + 2 V per
+    step and head, at 67 TFLOP/s."""
+    B, H, T, K = r.shape
+    V = v.shape[3]
+    nbytes = r.element_size() * (3 * r.numel() + 2 * v.numel()) + 4 * H * K
+    return max(B * H * T * (5 * K * V + 3 * K + 2 * V) / 67e12,
+               nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def rwkv6_work(T: int, K: int, V: int, chunk: int) -> tuple:
+    """(flops, SFU results) of the chunked RWKV-6 form the kernel runs,
+    for one (b, h), each product counted once. A chunk of c steps is cut
+    into sub-chunks of 16 (s_a steps each): A's blocks below the
+    diagonal (2 s_b s_a K each), the diagonal blocks' pairs with i <= t
+    (2 K each), o = A v over A's lower blocks (2 s_b s_a V), r~ S and
+    the state's update (2 c K V each). Its SFU results (its own cost, not
+    the function's; noted, not bounded): a log and two
+    powers of 2 per (step, channel) (the scaled r and k; the
+    sub-chunks' per-channel factors are left out), and one power per
+    pair i < t and channel of a diagonal block."""
+    C = min(chunk, T)
+    flops = exps = 0
+    for c0 in range(0, T, C):
+        c = min(C, T - c0)
+        sizes = [min(16, c - a) for a in range(0, c, 16)]
+        for b, sb in enumerate(sizes):
+            for sa in sizes[:b]:
+                flops += 2 * sb * sa * (K + V)
+            flops += sb * (sb + 1) * (K + V)
+            exps += sb * (sb - 1) // 2 * K
+        flops += 4 * c * K * V
+        exps += 3 * c * K
+    return flops, exps
+
+
 def lm_kernel_fns(name: str, args: tuple, kw: dict):
     """(kernel, plain version, library call or None, library label,
     bound ms, 'bytes' or 'operations', bound note, tolerance) for one LM
@@ -2668,10 +2805,12 @@ def lm_kernel_fns(name: str, args: tuple, kw: dict):
     3.35 TB/s and the operations the function needs on this data over
     the peak for their type: for attention 4 D flops per unmasked pair
     and head at 989 TFLOP/s bf16 (495 f32) on the tensor cores, and its
-    exponentials on the SFU (``SFU_PER_S``); for RWKV-6 the
-    recurrence's own f32 work per step and (b, h) at 67 TFLOP/s: o = r.S (2 K V), S <- w*S + k v^T (3 K V) and the u bonus
-    (3 K + 2 V), with no exponentials. The chunked form the kernel runs
-    does more (its pairwise decays); its count is only noted."""
+    exponentials on the SFU (``SFU_PER_S``); for RWKV-6 the chunked
+    form's products counted once (``rwkv6_work``) at TF32's 495 TFLOP/s
+    on the tensor cores (the kernel's products are TF32). Its logs and
+    powers of 2 are the chunked form's own cost, not the function's (w
+    is given, the recurrence needs no transcendental), and the earlier
+    bound (the recurrence's own f32 work at 67 TFLOP/s) is only noted."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import rwkv6_scan as RW
@@ -2718,25 +2857,24 @@ def lm_kernel_fns(name: str, args: tuple, kw: dict):
         chunk = int(kw.get("chunk", args[5] if len(args) > 5 else 64))
         B, H, T, K = r.shape
         V = v.shape[3]
-        C = min(chunk, T)
-        ops = B * H * T * (5 * K * V + 3 * K + 2 * V)
-        chunked = 0
-        for c0 in range(0, T, C):
-            c = min(C, T - c0)
-            chunked += (c * (c - 1) // 2) * K * 5 + c * K * 3 + c * K * 6 \
-                + (c * (c + 1) // 2) * V * 2 + c * K * V * 2 \
-                + K * V * (2 * c + 2)
-        chunked *= B * H
+        flops, exps = rwkv6_work(T, K, V, chunk)
+        flops, exps = B * H * flops, B * H * exps
         nbytes = r.element_size() * (3 * r.numel() + 2 * v.numel()) \
             + 4 * u.numel()
         kern = lambda: RW.rwkv6_cuda(r, k, v, w, u, chunk)  # noqa: E731
         plain = lambda: R.rwkv6_ref(r, k, v, w, u)  # noqa: E731
         library, label = None, ("none: no PyTorch call computes the "
                                 "RWKV-6 recurrence")
-        bound_ops, bound_bytes = ops / 67e12, nbytes / HBM_BYTES_PER_S
+        bound_ops = flops / 495e12
+        bound_bytes = nbytes / HBM_BYTES_PER_S
         tol = rwkv6_bound(r, k, v, w, u, chunk)
-        note = (f"{ops / 1e9:.1f} GFLOP of the recurrence; the chunked "
-                f"form (C={C}) does {chunked / 1e9:.1f}")
+        earlier = rwkv6_earlier_bound_ms(r, v)
+        note = (f"the chunked form: {flops / 1e9:.1f} GFLOP of products, "
+                f"{flops / 495e12 * 1e3:.4f} ms on the tensor cores in "
+                f"TF32; its own {exps / 1e9:.3f}G logs and powers of 2, "
+                f"{exps / SFU_PER_S * 1e3:.4f} ms on the SFU, not in the "
+                f"bound (the recurrence needs none); earlier bound "
+                f"{earlier:.4f} ms (the recurrence at 67 TFLOP/s)")
     by = "operations" if bound_ops >= bound_bytes else "bytes"
     return (kern, plain, library, label, max(bound_ops, bound_bytes) * 1e3,
             by, note, tol)
@@ -2768,6 +2906,7 @@ def phase_lm_kernels(dev) -> None:
     bound (``attention_bound``, ``rwkv6_bound``) plus one bf16 ulp of
     the output in bf16, and two launches bit-identical."""
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RW
     worst, n = {}, {}
     for q, k, v, kw in attention_edge_cases(dev):
         _, share, _ = check_lm_kernel("flash_attention", (q, k, v), kw)
@@ -2776,11 +2915,12 @@ def phase_lm_kernels(dev) -> None:
         worst[key] = max(worst.get(key, 0), share)
         n[key] = n.get(key, 0) + 1
     assert len(worst) == 2, worst         # both paths ran
+    key = f"rwkv6 ({RW.PATH.replace('_', ' ')})"
     for args in rwkv6_edge_cases(dev):
         _, share, _ = check_lm_kernel("rwkv6", args[:5],
                                       dict(chunk=args[5]))
-        worst["rwkv6"] = max(worst.get("rwkv6", 0), share)
-        n["rwkv6"] = n.get("rwkv6", 0) + 1
+        worst[key] = max(worst.get(key, 0), share)
+        n[key] = n.get(key, 0) + 1
     log(f"[2 kernels] LM edge cases within the f32 rounding bound of their "
         f"plain versions (+1 bf16 ulp in bf16), two launches "
         f"bit-identical: "
@@ -2888,11 +3028,11 @@ def measure_lm_kernel(name: str, args: tuple, kw: dict, launches: int,
     the library yardstick and the bound."""
     err, share, fns = check_lm_kernel(name, args, kw)
     kern, plain, library, lib_label, bound_ms, by, note, _ = fns
-    dev_ms, dev_s = device_ms(kern, iters=3)
     # rwkv6's plain version is a loop of four launches per step over T:
     # host-paced, and too many launches for a complete profile
-    plain_dev, plain_s = device_ms(plain, iters=1) \
-        if name == "flash_attention" else (None, 0)
+    (dev_ms, plain_dev, lib_dev), dev_s = device_ms(
+        [kern, plain if name == "flash_attention" else None, library],
+        [3, 1, 3])
     meta = KERNELS[name]
     rec = dict(name=name, route="cuda", source=meta["source"],
                replaces=meta["replaces"], launches=launches,
@@ -2900,21 +3040,25 @@ def measure_lm_kernel(name: str, args: tuple, kw: dict, launches: int,
                plain_ms=time_ms(plain, iters=2), device_ms=dev_ms,
                plain_device_ms=plain_dev, bound_ms=bound_ms, bound_by=by,
                library_ms=time_ms(library, iters=5) if library else None,
-               shape=label)
+               library_device_ms=lib_dev, shape=label)
     if name == "flash_attention":
         from repro_torch.kernels import flash_attention as FA
         rec.update(path=FA.kernel_path(args[0].dtype, args[0].shape[-1]))
+    else:
+        from repro_torch.kernels import rwkv6_scan as RW
+        rec.update(path=RW.PATH)
     shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+    lib = (f"{_ms(rec['library_ms'])} ms, {_ms(lib_dev)} on the device, "
+           if library else "")
     log(f"  [{tag}] {name} ({label}) at {shapes} {args[0].dtype}, "
         f"{ {k: v for k, v in kw.items() if v is not None} }: within the "
         f"bound of the plain version ({share:.3g} of it, max |err| "
         f"{err:.3g}), two launches bit-identical; kernel {rec['ms']:.4f} ms "
-        f"({_ms(dev_ms)} on the device, session {dev_s}), plain "
-        f"{rec['plain_ms']:.4f} ms ({_ms(plain_dev)} on the device, session "
-        f"{plain_s}), bound {bound_ms:.4f} ms by {by} ({note}; "
+        f"({_ms(dev_ms)} on the device, profile session {dev_s}), plain "
+        f"{rec['plain_ms']:.4f} ms ({_ms(plain_dev)} on the device), bound "
+        f"{bound_ms:.4f} ms by {by} ({note}; "
         f"{bound_ms / rec['ms']:.1%} of bound; path "
-        f"{rec.get('path', 'cuda')}), library "
-        f"{_ms(rec['library_ms']) + ' ms (' if library else '('}{lib_label}); "
+        f"{rec['path']}), library {lib}({lib_label}); "
         f"{launches} launches in the warm prefill")
     return rec
 
@@ -3060,6 +3204,7 @@ def phase_lm(tag: str, arch: str, B: int, S: int, kernel: str,
     gen.manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RW
     with capture_lm_calls() as calls:
         logits, cold_s, warm_ms, peak, _ = timed_calls(
             lambda: T.prefill(cfg, params, tokens))
@@ -3071,7 +3216,8 @@ def phase_lm(tag: str, arch: str, B: int, S: int, kernel: str,
         f"{peak / 2 ** 30:.2f} GiB above the weights; launches {kernel} "
         f"{counts[kernel]}, {other} {counts[other]}; flash_attention by "
         f"path: tensor cores {paths['tensor_cores']}, CUDA cores "
-        f"{paths['cuda_cores']}")
+        f"{paths['cuda_cores']}; rwkv6 by path: {RW.PATH.replace('_', ' ')} "
+        f"{counts['rwkv6']}")
     assert counts[kernel] == expect and counts[other] == 0, counts
     if kernel == "flash_attention":
         assert paths == {"tensor_cores": expect, "cuda_cores": 0}, paths

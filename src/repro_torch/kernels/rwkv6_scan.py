@@ -2,7 +2,9 @@
 
 The Pallas kernel's function: the chunked form of the data-dependent
 decay recurrence, f32 arithmetic and state, the output in r's dtype.
-The design note is in the CUDA source.
+The design note is in the CUDA source: one kernel for f32 and bf16,
+its products on the tensor cores (``PATH``) in TF32 with every f32
+operand split into two terms, the decays factored at 16-step sub-chunks.
 
 ``LAUNCHES`` counts the calls that launched the kernel (and nothing
 else), so a run can show that its path went through it.
@@ -17,6 +19,7 @@ import torch
 from . import build
 
 LAUNCHES = 0
+PATH = "tensor_cores"  # the one path: every call of every shape takes it
 _FN = None
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_KV = 128          # largest K and V: the chunk, its sums and the K x V

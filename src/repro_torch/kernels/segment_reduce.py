@@ -16,6 +16,7 @@ import torch
 from . import build
 
 LAUNCHES = 0
+TILE_ROWS = 2048      # rows per tile of the kernel (it refuses others)
 _FN = None
 
 
@@ -24,9 +25,8 @@ def _fn():
     if _FN is None:
         f = build.load("segment_reduce").segment_reduce_launch
         f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                      ctypes.c_int, ctypes.c_int64] \
-            + [ctypes.c_void_p] * 4 + [ctypes.c_int64] \
-            + [ctypes.c_void_p] * 2
+                      ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+                      ctypes.c_int64] + [ctypes.c_void_p] * 5
         f.restype = ctypes.c_int
         _FN = f
     return _FN
@@ -36,9 +36,9 @@ def segment_reduce_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
                         num_segments: int) -> torch.Tensor:
     """(S, d) float32 sums of ``values`` (n, d) float32 by ``seg_ids``
     (n,) int32, both contiguous on one CUDA device. Rows with ids outside
-    [0, num_segments) are dropped. The in-range ids should be
-    non-decreasing: the result does not depend on it, the cost does
-    (each segment sums the rows between its first and last row)."""
+    [0, num_segments) are dropped. The in-range ids must be
+    non-decreasing: the kernel traps on a descending pair, so that the
+    next synchronisation raises (it never returns other sums)."""
     n = seg_ids.shape[0]
     S = int(num_segments)
     dev = seg_ids.device
@@ -60,22 +60,19 @@ def segment_reduce_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
                          "int32 index range")
     d = values.shape[1]
     out = torch.empty((S, d), dtype=torch.float32, device=dev)
-    if S == 0:
+    if S == 0 or d == 0:
         return out
     fn = _fn()
-    # scratch: each segment's first row and range end, the list of the
-    # ranges longer than one thread sums (at most one per non-empty
-    # segment) and its two counts
-    first = torch.empty((S,), dtype=torch.int32, device=dev)
-    end = torch.empty((S,), dtype=torch.int32, device=dev)
-    list_len = max(min(S, n), 1)
-    lst = torch.empty((list_len,), dtype=torch.int32, device=dev)
-    counts = torch.empty((2,), dtype=torch.int32, device=dev)
+    # scratch: each tile's lowest and highest in-range id and the sums of
+    # those two runs within it (the carries the second pass joins)
+    tiles = -(-n // TILE_ROWS)
+    ids = torch.empty((2, tiles), dtype=torch.int32, device=dev)
+    carry = torch.empty((2, tiles, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = fn(values.data_ptr(), seg_ids.data_ptr(), n, d, S,
-                 out.data_ptr(), first.data_ptr(), end.data_ptr(),
-                 lst.data_ptr(), list_len, counts.data_ptr(),
-                 build.stream_handle(dev))
+                 out.data_ptr(), tiles, ids[0].data_ptr(),
+                 ids[1].data_ptr(), carry[0].data_ptr(),
+                 carry[1].data_ptr(), build.stream_handle(dev))
     build.check(err, "segment_reduce")
     build.bump(globals(), "LAUNCHES")
     return out

@@ -570,6 +570,79 @@ def test_segment_reduce_repeats_bitwise_within_the_f32_bound(cuda, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5])
+def test_segment_reduce_tile_edges_bit_exact_counted_once(cuda, d):
+    """Runs at the edges of the kernel's 2048-row tiles (a segment ending
+    at a tile's end, one straddling two, one spanning 41 tiles,
+    out-of-range rows at tiles' first and last rows, 35 tiles without an
+    in-range id, empty segments before, between and after tiles, a tail
+    tile), on integer values: bit-exact against the plain version, each
+    call counted once."""
+    from repro_torch.kernels import segment_reduce as TSR
+    rng = np.random.RandomState(40 + d)
+    for seg, S in chip_smoke.reduce_tile_edges(rng):
+        vals = rng.randint(0, 100, (seg.shape[0], d)).astype(np.float32)
+        v = torch.from_numpy(vals).to(cuda)
+        g = torch.from_numpy(seg.astype(np.int32)).to(cuda)
+        before = TSR.LAUNCHES
+        got = TK.segment_reduce(v, g, S)
+        assert TSR.LAUNCHES == before + 1
+        assert chip_smoke.max_abs_err(got, TR.segment_reduce_ref(v, g, S)) \
+            == 0.0, (seg.shape, S)
+
+
+@pytest.mark.cuda
+def test_segment_reduce_without_rows_or_segments(cuda):
+    """n = 0 zeroes every segment (one launch); S = 0 returns (0, d)
+    without a launch."""
+    from repro_torch.kernels import segment_reduce as TSR
+    v = torch.zeros((0, 3), device=cuda)
+    g = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    before = TSR.LAUNCHES
+    out = TSR.segment_reduce_cuda(v, g, 5)
+    assert torch.equal(out, torch.zeros((5, 3), device=cuda))
+    assert TSR.LAUNCHES == before + 1
+    v = torch.ones((7, 2), device=cuda)
+    g = torch.zeros((7,), dtype=torch.int32, device=cuda)
+    assert TSR.segment_reduce_cuda(v, g, 0).shape == (0, 2)
+    assert TSR.LAUNCHES == before + 1
+
+
+DESCENDING = """
+import sys, torch
+sys.path.insert(0, {src!r})
+from repro_torch.kernels import segment_reduce as SR
+seg = torch.arange({n}, dtype=torch.int32, device="cuda") // 2
+seg[{at}], seg[{at} + 1] = seg[{at} + 1] + 0, seg[{at}] + 0
+out = SR.segment_reduce_cuda(torch.ones(({n}, 1), device="cuda"), seg, {S})
+torch.cuda.synchronize()
+print("RETURNED", float(out.sum()))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,at", [(100, 41), (5000, 95), (5000, 2047),
+                                  (9000, 4095)])
+def test_segment_reduce_stops_on_descending_ids(cuda, n, at):
+    """The precondition (in-range ids non-decreasing) is checked on the
+    card: a descending pair inside a thread's rows (row 41), between
+    threads (rows 95, 96) and between two tiles (rows 2047, 2048 and
+    4095, 4096) makes the kernel trap, so that the synchronisation
+    after it raises and the process stops; it never returns sums. Run in
+    a child process, since the trap loses the CUDA context."""
+    import subprocess
+    seg = np.arange(n) // 2
+    assert seg[at] != seg[at + 1]
+    code = DESCENDING.format(src=os.path.join(ROOT, "src"), n=n, at=at,
+                             S=n // 2 + 1)
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode != 0 and "RETURNED" not in run.stdout, run.stdout
+    assert "seg_ids descend" in run.stdout + run.stderr, \
+        (run.stdout, run.stderr[-2000:])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("levels", [1, 2, 3])
 def test_standard_route_on_card_equals_port_on_cpu(cuda, levels):
     """Fig. 7's n2n point at ``levels`` through run_standard with the
@@ -672,6 +745,30 @@ def test_flash_attention_path_rule_on_the_card(cuda):
         assert TFA.PATH_LAUNCHES["tensor_cores"] == 0
         chip_smoke.within(out, TR.attention_ref(q, q, q),
                           chip_smoke.attention_bound(q, q, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128,
+                               129])
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_rwkv6_around_sub_chunk_and_chunk_edges(cuda, T, chunk):
+    """T around multiples of the kernel's 16-step sub-chunk and of the
+    chunk, bf16 and f32: within ``rwkv6_bound`` of the plain version,
+    two launches bit-identical, each launch counted on the kernel's one
+    path (the tensor cores)."""
+    from repro_torch.kernels import rwkv6_scan as TRW
+    rng = np.random.RandomState(T * 100 + chunk)
+    for dtype in (torch.bfloat16, torch.float32):
+        r, k, w = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in (
+            rng.randn(2, 3, T, 64) * 0.5, rng.randn(2, 3, T, 64) * 0.5,
+            0.2 + 0.79 * rng.rand(2, 3, T, 64)))
+        v = torch.as_tensor(rng.randn(2, 3, T, 48), dtype=dtype, device=cuda)
+        u = torch.as_tensor(rng.randn(3, 64) * 0.3, dtype=torch.float32,
+                            device=cuda)
+        before = TRW.LAUNCHES
+        chip_smoke.check_lm_kernel("rwkv6", (r, k, v, w, u),
+                                   dict(chunk=chunk))
+        assert TRW.LAUNCHES == before + 2 and TRW.PATH == "tensor_cores"
 
 
 @pytest.mark.cuda

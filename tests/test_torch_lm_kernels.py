@@ -191,6 +191,159 @@ def test_kernel_path_rule():
 
 
 # ---------------------------------------------------------------------------
+# the rwkv6 kernel's error model
+# ---------------------------------------------------------------------------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 explicit mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` does."""
+    bits = (x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+def _split_mm(a, b, rounding="tf32", terms=2, b_exact=False):
+    """a @ b as the kernel's tensor cores take it: each f32 operand
+    split into ``terms`` parts (x = hi + lo + ..., each part rounded to
+    ``rounding``), the products of parts whose orders sum below
+    ``terms`` accumulated in f32; ``b_exact``: b is exact in the format
+    (bf16 v in TF32) and is not split."""
+    rnd = _tf32 if rounding == "tf32" else (lambda x: x.bfloat16().float())
+
+    def parts(x):
+        out, rest = [], x
+        for _ in range(terms):
+            out.append(rnd(rest))
+            rest = rest - out[-1]
+        return out
+
+    out = 0
+    for i, x in enumerate(parts(a)):
+        for j, y in enumerate([b] if b_exact else parts(b)):
+            if i + j < terms:
+                out = out + x @ y
+    return out
+
+
+def subchunk_rwkv6(r, k, v, w, u, chunk=64, rounding="tf32", terms=2,
+                   one_reference=False):
+    """The RWKV-6 kernel's arithmetic in torch, f32 out: chunks of
+    ``chunk`` steps padded to multiples of 16 (w = 1, r = k = v = 0),
+    log2-decays and their cumulative sums; A's blocks below the diagonal
+    as split products of r and k scaled at the end b of the source's
+    16-step sub-chunk (2^(cwe[t] - b) and 2^(b - cwi[i]), both <= 1),
+    its diagonal blocks by a power of 2 per pair and channel with the u
+    bonus on the diagonal; o = A v + (r 2^cwe) S and S <- diag(2^cwi[-1])
+    S + (k 2^(cwi[-1] - cwi))^T v as split products. ``one_reference``:
+    every pair of a chunk factored at the chunk's end instead, the
+    diagonal blocks too (the control: 2^(cwe[t] - b) then exceeds 1)."""
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    v_exact = v.dtype == torch.bfloat16 and rounding == "tf32"
+    C = min(chunk, T)
+    CP = -(-C // 16) * 16
+    S = torch.zeros(B, H, K, V)
+    out = torch.empty(B, H, T, V)
+    uf = u.float()[None, :, None, :]
+    for c0 in range(0, T, C):
+        n = min(C, T - c0)
+
+        def pad(x, fill=0.0):
+            p = torch.full((B, H, CP, x.shape[-1]), fill)
+            p[:, :, :n] = x[:, :, c0:c0 + n]
+            return p
+
+        rc, kc, vc = pad(rf), pad(kf), pad(vf)
+        cwi = torch.cumsum(torch.log2(pad(wf, 1.0).clamp(min=1e-12)), dim=2)
+        cwe = torch.cat([torch.zeros(B, H, 1, K), cwi[:, :, :-1]], dim=2)
+        bonus = torch.diag_embed((rc * uf * kc).sum(-1))
+        if one_reference:
+            end = cwi[:, :, -1:]
+            A = bonus + torch.tril(_split_mm(
+                rc * torch.exp2(cwe - end), (kc * torch.exp2(end - cwi)).mT,
+                rounding, terms), -1)
+        else:
+            A = torch.zeros(B, H, CP, CP)
+            for b in range(CP // 16):
+                for a in range(b):
+                    end = cwi[:, :, 16 * a + 15:16 * a + 16]
+                    q = rc[:, :, 16 * b:16 * b + 16] * torch.exp2(
+                        cwe[:, :, 16 * b:16 * b + 16] - end)
+                    kt = kc[:, :, 16 * a:16 * a + 16] * torch.exp2(
+                        end - cwi[:, :, 16 * a:16 * a + 16])
+                    A[:, :, 16 * b:16 * b + 16, 16 * a:16 * a + 16] = \
+                        _split_mm(q, kt.mT, rounding, terms)
+            for b in range(CP // 16):
+                sl = slice(16 * b, 16 * b + 16)
+                e = torch.exp2(cwe[:, :, sl, None, :]
+                               - cwi[:, :, None, sl, :])
+                d = (rc[:, :, sl, None, :] * kc[:, :, None, sl, :] * e)
+                A[:, :, sl, sl] = torch.tril(d.sum(-1), -1) \
+                    + bonus[:, :, sl, sl]
+        o = _split_mm(A, vc, rounding, terms, v_exact) \
+            + _split_mm(rc * torch.exp2(cwe), S, rounding, terms)
+        out[:, :, c0:c0 + n] = o[:, :, :n]
+        last = cwi[:, :, -1]
+        kt = kc * torch.exp2(last[:, :, None, :] - cwi)
+        S = torch.exp2(last)[..., None] * S + _split_mm(
+            kt.mT, vc, rounding, terms, v_exact)
+    return out
+
+
+RWKV_ALL = chip_smoke.rwkv6_edge_cases(CPU)
+
+
+def _share_of_bound(got, case) -> float:
+    r, k, v, w, u, chunk = case
+    want = TR.rwkv6_ref(r.float(), k.float(), v.float(), w.float(), u)
+    bound = chip_smoke.rwkv6_bound(r, k, v, w, u, chunk)
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    return float(((got.double() - want.double()).abs()
+                  / bound.clamp(min=1e-300)).max())
+
+
+@pytest.mark.parametrize("case", range(len(RWKV_ALL)))
+def test_subchunk_tf32_within_a_quarter_of_the_bound(case):
+    """Every chip_smoke.py rwkv6 edge case (decays near 0 and near 1,
+    K != V, K = V = 128, T not a multiple of 16 or of the chunk, f32 and
+    bf16): the kernel's arithmetic (``subchunk_rwkv6``: TF32 hi + lo
+    splits, sub-chunk factoring, diagonal blocks per pair) stays within
+    a quarter of ``chip_smoke.rwkv6_bound`` of the plain version's f32
+    result, so that the kernel keeps the f32 contract with room for its
+    own summation order."""
+    r, k, v, w, u, chunk = RWKV_ALL[case]
+    got = subchunk_rwkv6(r, k, v, w, u, chunk)
+    assert _share_of_bound(got, RWKV_ALL[case]) <= 0.25
+
+
+NEAR0 = [c for c in RWKV_ALL if float(c[3].float().max()) < 1e-2]
+
+
+def test_one_rounding_or_one_reference_point_breaks_the_bound():
+    """The controls. On the cases with decays near 0 (down to 1e-9 a
+    step, 2^-30), one reference point per chunk (at its end) overflows to
+    a non-finite result wherever the chunk spans more than 4 steps, and
+    each case gives a non-finite or out-of-bound result under one of the
+    two controls. One bf16 rounding per operand leaves the bound on at
+    least half of every second edge case (not where a long chunk's sum of
+    |log w| makes the bound loose)."""
+    assert len(NEAR0) >= 10
+    for case in NEAR0:
+        r, k, v, w, u, chunk = case
+        one_ref = subchunk_rwkv6(r, k, v, w, u, chunk, one_reference=True)
+        finite = bool(torch.isfinite(one_ref).all())
+        assert not finite or min(chunk, r.shape[2]) <= 4, r.shape
+        once = subchunk_rwkv6(r, k, v, w, u, chunk, rounding="bf16",
+                              terms=1)
+        assert not finite or _share_of_bound(once, case) > 1.0, r.shape
+    cases = RWKV_ALL[::2]
+    over = sum(_share_of_bound(subchunk_rwkv6(
+        *c[:5], c[5], rounding="bf16", terms=1), c) > 1.0 for c in cases)
+    assert over >= len(cases) // 2, (over, len(cases))
+
+
+# ---------------------------------------------------------------------------
 # rwkv6_ref
 # ---------------------------------------------------------------------------
 
