@@ -19,6 +19,10 @@ wrong or if there is no CUDA device. Phases:
                of its 16-step sub-chunk and of the chunk) within a
                first-order f32 rounding bound (+1 bf16 ulp in bf16), two
                launches bit-identical, the worst share per path;
+               segment_sum_first and merge_positions also at card scale
+               (the 2048-row tiles' edges, a run over 250 tiles, a
+               4M-row group over an empty tail as long, r = 2^24 + 3
+               keys, ascending queries), two launches bit-identical;
   A quickstart examples/quickstart.py's query with use_kernel=True
                matches the port's interpreter;
   B n2n TPC-H level 2, domain elimination on, at the SF10 order count:
@@ -29,7 +33,8 @@ wrong or if there is no CUDA device. Phases:
                kernel at the arguments of its largest call in the warm
                run: bit-exact against its plain version, and timed with
                CUDA events beside its plain version, one library call
-               and the byte bound; a profiled warm run; and four warm
+               and the byte bound (segment_sum_first's n, d, k, S and
+               runs logged); a profiled warm run; and four warm
                calls from an emptied allocator cache with the default
                allocator, then four with expandable segments;
   C the same query with domain elimination off (DeDup + general_join)
@@ -70,8 +75,9 @@ wrong or if there is no CUDA device. Phases:
                imbalance; the result against the numpy group-by,
                bit-equal to the use_kernel=False run and equal as a bag
                to a single-device jit_program run; a warm heavy-key
-               rebind with 0 retraces; the shuffle kernels at their
-               largest calls; a device profile. The `off` plan (no skew
+               rebind with 0 retraces; segment_sum_first (held as in G)
+               and the shuffle kernels at their largest calls; a device
+               profile. The `off` plan (no skew
                handling) runs at the SF1 order count, with `auto`
                beside it: at SF10 its exchanges would need more than
                the card's 80 GB (the reckoning is in PERF.md, section 6);
@@ -155,11 +161,11 @@ wrong or if there is no CUDA device. Phases:
 The last three lines: nvidia-smi's name and power limit, the per-kernel
 JSON records (phase B's join kernels; D0's decode kernels with D's
 launch counts, bitunpack's from D0 since no column of this data picks
-bitpack; F's member_mask, pack_rows and unpack_cols; G's
-replicate_scatter; J's segment_reduce at (a) and at (b) with d = 4; K's
-rwkv6; L's flash_attention at a local and a global layer; each with the
-library call's device time where there is one, and with its path where
-it has one), and ``{"ok": true, "device": ...}``.
+bitpack; F's segment_sum_first, member_mask, pack_rows and unpack_cols;
+G's replicate_scatter; J's segment_reduce at (a) and at (b) with d = 4;
+K's rwkv6; L's flash_attention at a local and a global layer; each with
+the library call's device time where there is one, and with its path
+where it has one), and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -801,6 +807,19 @@ def sums_within_f32_bound(got: tuple, want: tuple, args: tuple) -> None:
     assert bool((err <= bound).all()), float((err - bound).max())
 
 
+def segment_runs(args: tuple) -> str:
+    """n, d, k and S of a segment_sum_first call, its longest run of
+    rows of one in-range id, and how many runs are longer than 64 rows
+    (the old kernel summed those one block each)."""
+    vals, keys, seg, S = args
+    inr = seg[(seg >= 0) & (seg < S)]
+    counts = torch.unique_consecutive(inr, return_counts=True)[1]
+    longest = int(counts.max()) if counts.numel() else 0
+    return (f"n={seg.numel()}, d={vals.shape[1]}, k={keys.shape[1]}, "
+            f"S={S}, {counts.numel()} runs, the longest {longest} rows, "
+            f"{int((counts > 64).sum())} longer than 64 rows")
+
+
 def measure_kernels(captured: dict, launches: dict, tag: str,
                     f32_sums: bool = False) -> list:
     """Bit-exact comparison and CUDA-event timings at the captured
@@ -838,6 +857,9 @@ def measure_kernels(captured: dict, launches: dict, tag: str,
                    library_device_ms=lib_dev)
         shapes = [tuple(a.shape) if torch.is_tensor(a) else a
                   for a in args]
+        if name == "segment_sum_first":
+            rec["shape"] = segment_runs(args)
+            log(f"  [{tag}] segment_sum_first's call: {rec['shape']}")
         log(f"  [{tag}] {name} at {shapes}: "
             f"{'bit-exact' if err == 0 else 'within bound'}; kernel "
             f"{rec['ms']:.4f} ms ({_ms(dev)} on the device, profile session "
@@ -943,7 +965,83 @@ def edge_cases(dev, large: bool = True) -> list:
         idx[-1] = r
         cases.append(("gather_rows", (T(vals, torch.int64),
                                       T(idx, torch.int64))))
+    if large:
+        rng = np.random.RandomState(8)
+        for vals, keys, seg, S in first_card_cases(rng):
+            cases.append(("segment_sum_first", (T(vals, torch.float32),
+                                                T(keys, torch.int64),
+                                                T(seg, torch.int32), S)))
+        for sk, q in merge_card_cases(rng):
+            cases.append(("merge_positions", (T(sk, torch.int64),
+                                              T(q, torch.int64))))
     return cases
+
+
+def first_card_cases(rng) -> list:
+    """(vals, keys, seg, S) for segment_sum_first at card scale: the
+    edges of the 2048-row tiles (``reduce_tile_edges``) with d from 1 to
+    4 and k from 4 to 1; a run over 250 tiles between short groups;
+    sparse ids (a tile's ids wider than its slots); and the main path's
+    shape: dense group ids whose last group takes a
+    multi-million-row invalid tail, with S the capacity, so that the ids
+    above it are as long an empty tail. Values are integers small enough
+    that every sum is exact."""
+    def case(seg, S, d, k, top=100):
+        n = seg.shape[0]
+        return (rng.randint(0, top, (n, d)).astype(np.float32),
+                rng.randint(-2 ** 62, 2 ** 62, (n, k)).astype(np.int64),
+                seg.astype(np.int32), S)
+
+    out = [case(seg, S, d, 5 - d) for seg, S in reduce_tile_edges(rng)
+           for d in range(1, 5)]
+    from repro_torch.kernels.segment_reduce import TILE_ROWS as T
+    def short(a, b):                    # ids a..b-1, 1-8 rows each
+        return np.repeat(np.arange(a, b), rng.randint(1, 9, b - a))
+
+    seg = np.concatenate([short(0, 1000), np.full(250 * T + 77, 1000),
+                          short(1001, 2000)])
+    out.append(case(seg, 2100, 2, 3, top=10))
+    # sparse ids: a tile's ids span more than its 2048 slots (written
+    # directly), with wide gaps between tiles
+    out.append(case(np.sort(rng.randint(0, 10 ** 6, 9000)), 10 ** 6, 1, 2))
+    n, groups = 1 << 22, 150_000
+    seg = np.concatenate([np.repeat(np.arange(groups - 1),
+                                    rng.randint(1, 4, groups - 1)),
+                          np.full(n, groups - 1)])[:n]
+    vals, keys, seg, S = case(seg, n, 2, 3)
+    vals[groups * 2:] = rng.randint(0, 2, vals[groups * 2:].shape)
+    out.append((vals, keys, seg, S))
+    return out
+
+
+def merge_card_cases(rng) -> list:
+    """(sorted keys, queries) for merge_positions at card scale: r =
+    2^24 + 3 keys with runs of equal keys longer than a sector of heads
+    (16 keys) and than a fence bracket (2,048 keys at this r) and an
+    INT64_MAX tail, probed by keys, their neighbours, random values,
+    INT64_MIN and INT64_MAX; r at 16,384 fences of 16 keys and one key
+    either side; ascending queries into a general join's offsets (its
+    second call, ``merge_positions(offs, arange)``)."""
+    i64 = np.iinfo(np.int64)
+    r = (1 << 24) + 3
+    sk = np.sort(rng.randint(-2 ** 40, 2 ** 40, r))
+    sk[1000:1040] = sk[1000]                      # over 16 keys
+    sk[5_000_000:5_003_000] = sk[5_000_000]       # longer than a bracket
+    sk[-1000:] = i64.max
+    hit = sk[rng.randint(0, r, 600_000)]
+    q = np.concatenate([hit, hit[:200_000] + 1, hit[:200_000] - 1,
+                        rng.randint(-2 ** 41, 2 ** 41, 200_000),
+                        [i64.min] * 7, [i64.max] * 7, sk[[1000, 5_000_000]]])
+    rng.shuffle(q)
+    out = [(sk, q)]
+    for r in (16384 * 16 - 1, 16384 * 16, 16384 * 16 + 1):
+        sk = np.sort(rng.randint(-10 ** 6, 10 ** 6, r))
+        q = np.concatenate([sk[rng.randint(0, r, 50_000)],
+                            rng.randint(-11 * 10 ** 5, 11 * 10 ** 5, 50_000)])
+        out.append((sk, q))
+    offs = np.cumsum(rng.randint(0, 4, 1_000_000))
+    out.append((offs, np.arange(offs[-1] + 10)))
+    return out
 
 
 def reduce_edge_cases(dev, large: bool = True) -> list:
@@ -1172,13 +1270,17 @@ def phase_kernels(dev) -> None:
     for name, args in edge_cases(dev) + reduce_edge_cases(dev) \
             + decode_edge_cases(dev) + shuffle_edge_cases(dev):
         kern, plain, _, _ = kernel_fns(name, args)
-        err = max_abs_err(kern(), plain())
+        got = kern()
+        err = max_abs_err(got, plain())
+        if name in ("segment_sum_first", "merge_positions"):
+            err = max(err, max_abs_err(got, kern()))   # launches repeat
         torch.cuda.synchronize()
         assert err == 0.0, (name, [tuple(a.shape) if torch.is_tensor(a)
                                    else a for a in args], err)
         n += 1
     log(f"[2 kernels] {n} edge cases: every kernel bit-exact against its "
-        f"plain version")
+        f"plain version (segment_sum_first and merge_positions: two "
+        f"launches bit-identical)")
 
 
 def phase_quickstart(dev) -> None:
@@ -1690,8 +1792,10 @@ def phase_skew(cols: dict, stats: dict, seed: int, dev) -> list:
     """Phase F: n2n TPC-H level 2 over Zipf-2.0 part keys on 8 sites,
     under the ``auto`` (planned SkewJoinP) and ``always`` (sampled heavy
     keys) plans at SF5, then ``off`` beside ``auto`` at SF1. Returns
-    the records of member_mask, pack_rows and unpack_cols at the
-    largest call of each in the warm ``auto`` call."""
+    the records of segment_sum_first, member_mask, pack_rows and
+    unpack_cols at the largest call of each in the warm ``auto`` call
+    (segment_sum_first held as in G: bit-exact, or within the f32 bound
+    with its per-segment row counts bit-exact)."""
     from repro_torch.columnar.table import env_from_numpy
     from repro_torch.core import codegen as CG
     from repro_torch.core import materialization as M
@@ -1744,8 +1848,9 @@ def phase_skew(cols: dict, stats: dict, seed: int, dev) -> list:
             profile_run(lambda: runner(env), tag)
             out = None
             recs = measure_kernels(capture_largest(
-                runner, env, ("member_mask", "pack_rows", "unpack_cols")),
-                counts, tag)
+                runner, env, ("segment_sum_first", "member_mask",
+                              "pack_rows", "unpack_cols")),
+                counts, tag, f32_sums=True)
             for rec in recs:
                 rec["launches_in"] = "F warm auto call"
         out = runner = None

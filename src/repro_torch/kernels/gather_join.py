@@ -1,8 +1,9 @@
 """The join inner loop on Hopper (``csrc/gather_join.cu``):
 
 * ``merge_positions_cuda`` — for each probe key, its left/right
-  insertion points into the sorted build keys (two binary searches per
-  query);
+  insertion points into the sorted build keys (fences in shared memory,
+  then the first keys of the sectors, copied to a compact array that
+  stays in L2, then one sector of keys);
 * ``gather_rows_cuda`` — ``out[i] = values[idx[i]]`` over int64
   bit-view lanes, 0 for an index outside ``[0, r)``.
 
@@ -60,10 +61,14 @@ def merge_positions_cuda(sorted_keys: torch.Tensor, queries: torch.Tensor
                          "positions")
     lo = torch.empty((n,), dtype=torch.int32, device=dev)
     hi = torch.empty((n,), dtype=torch.int32, device=dev)
-    fn = _fn("merge_positions_launch", [_P, _I64, _P, _I64, _P, _P, _P])
+    fn = _fn("merge_positions_launch",
+             [_P, _I64, _P, _I64, _P, _P, _P, _P])
+    # scratch: the first key of each sector of 4 (the kernel's pre-pass)
+    heads = torch.empty(((r + 3) // 4,), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         err = fn(sorted_keys.data_ptr(), r, queries.data_ptr(), n,
-                 lo.data_ptr(), hi.data_ptr(), build.stream_handle(dev))
+                 lo.data_ptr(), hi.data_ptr(), heads.data_ptr() or None,
+                 build.stream_handle(dev))
     build.check(err, "merge_positions")
     build.bump(globals(), "MERGE_LAUNCHES")
     return lo, hi

@@ -17,24 +17,21 @@ import ctypes
 import torch
 
 from . import build
+from .segment_reduce import TILE_ROWS
 
 LAUNCHES = 0
 _FN = None
-_SHORT_RUN = None
 
 
 def _fn():
-    global _FN, _SHORT_RUN
+    global _FN
     if _FN is None:
-        lib = build.load("segment_fused")
-        f = lib.segment_sum_first_launch
+        f = build.load("segment_fused").segment_sum_first_launch
         f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int64] + [ctypes.c_void_p] * 7
+                      ctypes.c_int64] + [ctypes.c_void_p] * 3 \
+            + [ctypes.c_int64] + [ctypes.c_void_p] * 7
         f.restype = ctypes.c_int
-        lib.segment_sum_first_short_run.argtypes = []
-        lib.segment_sum_first_short_run.restype = ctypes.c_int
-        _SHORT_RUN = lib.segment_sum_first_short_run()
         _FN = f
     return _FN
 
@@ -45,9 +42,11 @@ def segment_sum_first_cuda(values: torch.Tensor, keys: torch.Tensor,
 
     ``values`` (n, d) float32, ``keys`` (n, k) int64 bit-views and
     ``seg_ids`` (n,) int32, all contiguous on one CUDA device.
-    Precondition: ``seg_ids`` are NON-DECREASING (the dense group ids of
-    a sorted bag, as ``exec.ops._segment_firsts`` delivers them); rows
-    with ids outside [0, num_segments) are dropped."""
+    Precondition: the in-range ``seg_ids`` are NON-DECREASING (the dense
+    group ids of a sorted bag, as ``exec.ops._segment_firsts`` delivers
+    them): the kernel traps on a descending pair, so that the next
+    synchronisation raises. Rows with ids outside [0, num_segments) are
+    dropped."""
     n = seg_ids.shape[0]
     S = int(num_segments)
     dev = seg_ids.device
@@ -77,17 +76,18 @@ def segment_sum_first_cuda(values: torch.Tensor, keys: torch.Tensor,
     fidx = torch.empty((S,), dtype=torch.int32, device=dev)
     fvals = torch.empty((S, k), dtype=torch.int64, device=dev)
     fn = _fn()
-    # scratch: each run's end, and the list of runs longer than the
-    # kernel's SHORT_RUN (at most n // (SHORT_RUN + 1) of them) + its size
-    seg_end = torch.empty((S,), dtype=torch.int32, device=dev)
-    long_list = torch.empty((max(n // (_SHORT_RUN + 1), 1),),
-                            dtype=torch.int32, device=dev)
-    n_long = torch.empty((1,), dtype=torch.int32, device=dev)
+    # scratch: each tile's lowest and highest in-range id, the rows where
+    # those two runs start and their sums within it (the carries the
+    # second pass joins)
+    tiles = -(-n // TILE_ROWS)
+    ids = torch.empty((4, tiles), dtype=torch.int32, device=dev)
+    carry = torch.empty((2, tiles, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = fn(values.data_ptr(), keys.data_ptr(), seg_ids.data_ptr(), n,
                  d, k, S, sums.data_ptr(), fidx.data_ptr(),
-                 fvals.data_ptr(), seg_end.data_ptr(), long_list.data_ptr(),
-                 n_long.data_ptr(), build.stream_handle(dev))
+                 fvals.data_ptr(), tiles, *(r.data_ptr() for r in ids),
+                 carry[0].data_ptr(), carry[1].data_ptr(),
+                 build.stream_handle(dev))
     build.check(err, "segment_sum_first")
     build.bump(globals(), "LAUNCHES")
     return sums, fidx, fvals

@@ -642,6 +642,81 @@ def test_segment_reduce_stops_on_descending_ids(cuda, n, at):
         (run.stdout, run.stderr[-2000:])
 
 
+# ---------------------------------------------------------------------------
+# segment_sum_first and merge_positions at card scale
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_segment_sum_first_at_card_scale_bit_exact_and_repeatable(cuda):
+    """The 2048-row tiles' edges with d from 1 to 4, a run over 250
+    tiles, sparse ids (a tile's ids wider than its 2048 slots), and a
+    4M-row last group over an empty tail of 4M ids (the main path's
+    shape), on integer values: bit-exact against the plain version, two
+    launches bit-identical, each call counted once."""
+    rng = np.random.RandomState(3)
+    for vals, keys, seg, S in chip_smoke.first_card_cases(rng):
+        args = (torch.from_numpy(vals).to(cuda),
+                torch.from_numpy(keys).to(cuda),
+                torch.from_numpy(seg).to(cuda), S)
+        before = TSF.LAUNCHES
+        got = TK.segment_sum_first(*args)
+        assert TSF.LAUNCHES == before + 1
+        assert chip_smoke.max_abs_err(got, TR.segment_sum_first_ref(*args)) \
+            == 0.0, (seg.shape, S)
+        assert chip_smoke.max_abs_err(got, TK.segment_sum_first(*args)) \
+            == 0.0
+
+
+@pytest.mark.cuda
+def test_merge_positions_at_card_scale_bit_exact_and_repeatable(cuda):
+    """r = 2^24 + 3 keys with runs of equal keys longer than a sector of
+    heads and a fence bracket and an INT64_MAX tail; r at the fence count
+    and one either side; ascending queries into a join's offsets:
+    bit-exact, two launches bit-identical."""
+    rng = np.random.RandomState(4)
+    for sk, q in chip_smoke.merge_card_cases(rng):
+        sk, q = torch.from_numpy(sk).to(cuda), torch.from_numpy(q).to(cuda)
+        got = TG.merge_positions_cuda(sk, q)
+        assert chip_smoke.max_abs_err(got, TR.merge_positions_ref(sk, q)) \
+            == 0.0, (sk.shape, q.shape)
+        assert chip_smoke.max_abs_err(got, TG.merge_positions_cuda(sk, q)) \
+            == 0.0
+
+
+SSF_DESCENDING = """
+import sys, torch
+sys.path.insert(0, {src!r})
+from repro_torch.kernels import segment_fused as SF
+seg = torch.arange({n}, dtype=torch.int32, device="cuda") // 2
+seg[{at}], seg[{at} + 1] = seg[{at} + 1] + 0, seg[{at}] + 0
+keys = torch.zeros(({n}, 2), dtype=torch.int64, device="cuda")
+out = SF.segment_sum_first_cuda(torch.ones(({n}, 1), device="cuda"), keys,
+                                seg, {S})
+torch.cuda.synchronize()
+print("RETURNED", float(out[0].sum()))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,at", [(5000, 89), (5000, 95), (9000, 4095)])
+def test_segment_sum_first_stops_on_descending_ids(cuda, n, at):
+    """segment_sum_first checks its precondition as segment_reduce does:
+    a descending pair inside a thread's 16 rows (rows 89, 90), between
+    threads (rows 95, 96) or between tiles (rows 4095, 4096) traps, and
+    the synchronisation after it raises (in a child process: the trap
+    loses the CUDA context)."""
+    import subprocess
+    seg = np.arange(n) // 2
+    assert seg[at] != seg[at + 1]
+    code = SSF_DESCENDING.format(src=os.path.join(ROOT, "src"), n=n, at=at,
+                                 S=n // 2 + 1)
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode != 0 and "RETURNED" not in run.stdout, run.stdout
+    assert "seg_ids descend" in run.stdout + run.stderr, \
+        (run.stdout, run.stderr[-2000:])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("levels", [1, 2, 3])
 def test_standard_route_on_card_equals_port_on_cpu(cuda, levels):
