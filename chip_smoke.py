@@ -23,6 +23,10 @@ wrong or if there is no CUDA device. Phases:
                (the 2048-row tiles' edges, a run over 250 tiles, a
                4M-row group over an empty tail as long, r = 2^24 + 3
                keys, ascending queries), two launches bit-identical;
+               pack_rows and replicate_scatter also around their
+               1024-slot tiles (one, two and more tiles than the grid
+               has blocks, d = 1 to 12, int64 ids beyond 2^32, views
+               off a 16-byte boundary), two launches bit-identical;
   A quickstart examples/quickstart.py's query with use_kernel=True
                matches the port's interpreter;
   B n2n TPC-H level 2, domain elimination on, at the SF10 order count:
@@ -76,9 +80,11 @@ wrong or if there is no CUDA device. Phases:
                bit-equal to the use_kernel=False run and equal as a bag
                to a single-device jit_program run; a warm heavy-key
                rebind with 0 retraces; segment_sum_first (held as in G)
-               and the shuffle kernels at their largest calls; a device
-               profile. The `off` plan (no skew
-               handling) runs at the SF1 order count, with `auto`
+               and the shuffle kernels at their largest calls
+               (pack_rows's r, m, d, slots taken, how many take the row
+               after the previous slot's, and its time with the slots
+               sorted by source row); a device profile. The `off` plan
+               (no skew handling) runs at the SF1 order count, with `auto`
                beside it: at SF10 its exchanges would need more than
                the card's 80 GB (the reckoning is in PERF.md, section 6);
   G hypercube  benchmarks/hypercube.py's chain (Lineitem joins Part on
@@ -90,7 +96,9 @@ wrong or if there is no CUDA device. Phases:
                the kernel result within n_g * 2^-24 * sum|x| of it (the
                f32 sums of segment_sum_first, whose per-segment row
                counts, summed in lanes of ones, are bit-exact); every
-               other kernel bit-exact at its largest captured call. G
+               other kernel bit-exact at its largest captured call
+               (replicate_scatter's shape and sorted time as pack_rows's
+               in F). G
                alone runs with expandable allocator segments: its
                cascade peaks near the card's 80 GB.
   H fig7       the paper's Fig. 7 (repro_torch.figures.tpch_nested's
@@ -206,6 +214,8 @@ SITES = 8                      # sites of the virtual mesh in F and G
 CHUNK_ROWS = 1 << 20           # rows per stored chunk (and per morsel):
 #                                Apache Arrow's default Parquet row group
 I64_MAX = np.iinfo(np.int64).max
+PAYLOAD_BITS = np.array([-0.0, np.nan, 1.5]).view(np.int64).tolist() \
+    + [0x7FF8_0000_0000_0ABC]      # -0.0, NaN, 1.5 and a NaN payload
 
 KERNELS = {
     "segment_reduce": dict(
@@ -611,6 +621,47 @@ def shuffle_fns(name: str, args: tuple):
             nbytes)
 
 
+def pack_call(name: str, args: tuple):
+    """The shape of a pack_rows or replicate_scatter call: r, m, d, the
+    slots that take a row, the share of those whose source row is the
+    previous slot's plus 1 to 8, and whether a load moves two lanes (d
+    even, 16-byte aligned bases); and the same call with its (idx, ok)
+    pairs sorted by source row, checked bit-exact. It takes the same
+    rows, so the bytes are the same: what it saves is what the
+    scattered rows cost."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import shuffle_pack as S
+    values, idx, ok = (a.contiguous() for a in args[:3])
+    repl = int(args[3]) if name == "replicate_scatter" else 1
+    r, d = values.shape
+    v = idx.to(torch.int64)
+    src = v // repl
+    good = ok.to(torch.bool) & (v >= 0) & (src < r)
+    taken = int(good.sum())
+    step = src[1:] - src[:-1]
+    near = int((good[1:] & good[:-1] & (step >= 1) & (step <= 8)).sum())
+    pair = d % 2 == 0 and values.data_ptr() % 16 == 0
+    order = torch.argsort(torch.where(good, src, I64_MAX), stable=True)
+    s_idx, s_ok = idx[order].contiguous(), ok[order].contiguous()
+    del v, src, good, step, order
+    if name == "pack_rows":
+        kern = lambda: S.pack_rows_cuda(values, s_idx, s_ok)  # noqa: E731
+        want = R.pack_rows_ref(values, s_idx, s_ok)
+    else:
+        kern = lambda: S.replicate_scatter_cuda(  # noqa: E731
+            values, s_idx, s_ok, repl)
+        want = R.replicate_scatter_ref(values, s_idx, s_ok, repl)
+    err = max_abs_err(kern(), want)
+    torch.cuda.synchronize()
+    assert err == 0.0, f"{name} with sorted slots: max |err| {err}"
+    at = f", repl={repl}" if name == "replicate_scatter" else ""
+    shape = (f"r={r}, m={idx.shape[0]}, d={d}{at}, "
+             f"{taken} slots take a row, {near / max(taken, 1):.1%} of "
+             f"them the previous slot's row + 1 to 8, "
+             f"{'two lanes' if pair else 'one lane'} a load")
+    return shape, kern
+
+
 def max_abs_err(got, want) -> float:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -844,8 +895,11 @@ def measure_kernels(captured: dict, launches: dict, tag: str,
                                f"version at {tag}'s shapes (max |err| " \
                                f"{err})"
         del got, want
-        (dev, plain_dev, lib_dev), dev_s = device_ms(
-            [kern, plain, library], [20, 20, 20])
+        shape = in_order = None
+        if name in ("pack_rows", "replicate_scatter"):
+            shape, in_order = pack_call(name, args)
+        (dev, plain_dev, lib_dev, order_dev), dev_s = device_ms(
+            [kern, plain, library, in_order], [20, 20, 20, 20])
         rec = dict(name=name, route="cuda", source=meta["source"],
                    replaces=meta["replaces"], launches=launches[name],
                    max_abs_err=err, ms=time_ms(kern),
@@ -860,6 +914,13 @@ def measure_kernels(captured: dict, launches: dict, tag: str,
         if name == "segment_sum_first":
             rec["shape"] = segment_runs(args)
             log(f"  [{tag}] segment_sum_first's call: {rec['shape']}")
+        if in_order is not None:
+            rec.update(shape=shape, sorted_ms=time_ms(in_order),
+                       sorted_device_ms=order_dev)
+            log(f"  [{tag}] {name}'s call: {shape}; with (idx, ok) sorted "
+                f"by source row (the same rows): bit-exact, "
+                f"{rec['sorted_ms']:.4f} ms ({_ms(order_dev)} on the "
+                f"device)")
         log(f"  [{tag}] {name} at {shapes}: "
             f"{'bit-exact' if err == 0 else 'within bound'}; kernel "
             f"{rec['ms']:.4f} ms ({_ms(dev)} on the device, profile session "
@@ -1195,19 +1256,17 @@ def shuffle_edge_cases(dev, large: bool = True) -> list:
     r = 0 and m = 1, sizes no multiple of any block, -0.0 and NaN
     payloads, int32 and int64 indices with bool and int32 flags,
     INT64_MAX on either side of member_mask and an unsorted heavy set.
-    ``large`` adds cases with tens of thousands of rows and a heavy set
-    larger than one shared-memory stage."""
+    ``large`` adds cases with tens of thousands of rows, a heavy set
+    larger than one shared-memory stage, and ``pack_tile_cases``."""
     rng = np.random.RandomState(13)
     T = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
-    special = np.array([-0.0, np.nan, 1.5]).view(np.int64).tolist() \
-        + [0x7FF8_0000_0000_0ABC]
     cases = []
     sizes = [(1, 1, 1), (9, 9, 2), (30, 50, 4), (0, 5, 3), (17, 129, 6)] \
         + ([(4000, 90001, 7), (70000, 131073, 5)] if large else [])
     for i, (r, m, d) in enumerate(sizes):
         vals = rng.randint(-2 ** 62, 2 ** 62, (r, d)).astype(np.int64)
         if vals.size:
-            vals.reshape(-1)[:len(special)] = special[:vals.size]
+            vals.reshape(-1)[:len(PAYLOAD_BITS)] = PAYLOAD_BITS[:vals.size]
         idx = rng.randint(-3, r + 3, m)
         idx[0], idx[-1] = -1, r
         ok = rng.rand(m) < 0.7 if i else np.zeros(m, bool)
@@ -1232,6 +1291,67 @@ def shuffle_edge_cases(dev, large: bool = True) -> list:
         rng.shuffle(heavy)                   # unsorted, padding between
         cases.append(("member_mask", (T(keys, torch.int64),
                                       T(heavy, torch.int64))))
+    return cases + (pack_tile_cases(rng, dev) if large else [])
+
+
+def pack_tile_cases(rng, dev) -> list:
+    """pack_rows and replicate_scatter around the kernel's 1024-slot
+    tiles: one tile, one slot over, two and three tiles, and more tiles
+    than the grid's blocks (each block then walks several, the next
+    one's indices staged while it gathers), with d from 1 to 12, odd
+    (one lane a load) and even (two); int32 and int64 ids, bool and
+    int32 flags; repl 1, 3 and 8, and int64 virtual ids beyond 2^32;
+    -0.0 and NaN payloads taken; ``values`` viewed 8 bytes off a 16-byte
+    boundary (one lane a load at even d), and ids and flags viewed off
+    one (the staging's head)."""
+    def view(a, dt, skip):         # ``a`` as ``dt``, ``skip`` items into
+        t = torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # a buffer
+        big = torch.empty((t.numel() + skip,), dtype=dt, device=dev)
+        big[skip:] = t.reshape(-1)
+        return big[skip:].view(t.shape)
+
+    def inputs(r, m, d, repl):
+        vals = rng.randint(-2 ** 62, 2 ** 62, (r, d)).astype(np.int64)
+        vals.reshape(-1)[:len(PAYLOAD_BITS)] = PAYLOAD_BITS
+        idx = rng.randint(-3, r * repl + 3, m).astype(np.int64)
+        idx[:3] = [0, -1, r * repl]              # the payload row, -1, r
+        return vals, idx, rng.rand(m) < 0.7
+
+    cases = []
+    sizes = [1024, 1025, 2048, 3077, 9000, 600_001]
+    for d in range(1, 13):
+        m = sizes[d % len(sizes)]
+        vals, idx, ok = inputs(m // 2 + 7, m, d, 1)
+        idt = torch.int32 if d % 2 else torch.int64
+        okt = torch.bool if d % 3 else torch.int32
+        cases.append(("pack_rows", (view(vals, torch.int64, 0),
+                                    view(idx, idt, 0), view(ok, okt, 0))))
+    for repl, idt, d in [(1, torch.int64, 4), (3, torch.int32, 5),
+                         (8, torch.int64, 6), (3, torch.int64, 3)]:
+        vals, vidx, ok = inputs(700, 2049 + 800 * repl, d, repl)
+        cases.append(("replicate_scatter", (view(vals, torch.int64, 0),
+                                            view(vidx, idt, 0),
+                                            view(ok, torch.bool, 0), repl)))
+    repl = 2 ** 33 + 1                       # int64 ids beyond 2^32
+    vals, vidx, ok = inputs(900, 3000, 4, repl)
+    assert int(vidx.max()) > 2 ** 32
+    cases.append(("replicate_scatter", (view(vals, torch.int64, 0),
+                                        view(vidx, torch.int64, 0),
+                                        view(ok, torch.bool, 0), repl)))
+    cases.append(("replicate_scatter", (view(vals, torch.int64, 0),
+                                        view(vidx, torch.int64, 0),
+                                        view(ok, torch.bool, 0), 7)))
+    for d, m in [(4, 2100), (6, 600_001), (5, 3100)]:   # off a boundary
+        vals, idx, ok = inputs(1500, m, d, 1)
+        cases.append(("pack_rows", (view(vals, torch.int64, 1),
+                                    view(idx, torch.int64, 1),
+                                    view(ok, torch.bool, 3))))
+        cases.append(("pack_rows", (view(vals, torch.int64, 1),
+                                    view(idx, torch.int32, 3),
+                                    view(ok, torch.int32, 1))))
+        cases.append(("replicate_scatter", (
+            view(vals, torch.int64, 1), view(idx * 3 + 2, torch.int64, 1),
+            view(ok, torch.bool, 5), 3)))
     return cases
 
 
@@ -1272,15 +1392,16 @@ def phase_kernels(dev) -> None:
         kern, plain, _, _ = kernel_fns(name, args)
         got = kern()
         err = max_abs_err(got, plain())
-        if name in ("segment_sum_first", "merge_positions"):
+        if name in ("segment_sum_first", "merge_positions", "pack_rows",
+                    "replicate_scatter"):
             err = max(err, max_abs_err(got, kern()))   # launches repeat
         torch.cuda.synchronize()
         assert err == 0.0, (name, [tuple(a.shape) if torch.is_tensor(a)
                                    else a for a in args], err)
         n += 1
     log(f"[2 kernels] {n} edge cases: every kernel bit-exact against its "
-        f"plain version (segment_sum_first and merge_positions: two "
-        f"launches bit-identical)")
+        f"plain version (segment_sum_first, merge_positions, pack_rows and "
+        f"replicate_scatter: two launches bit-identical)")
 
 
 def phase_quickstart(dev) -> None:

@@ -8,14 +8,38 @@
 //   out[j, :] = values[idx[j], :] where ok[j] and idx[j] lies in [0, r),
 //   else 0. The Pallas kernel built each block of send slots as a dense
 //   one-hot compare against every block of source rows (O(m*r) work,
-//   shaped for the MXU). Here each output element is one direct load:
-//   one thread per (slot, lane) with the lanes innermost, so neighbouring
-//   threads store neighbouring addresses of the (m, d) int64 output.
+//   shaped for the MXU). Here each slot's row is one direct gather.
 //   Floats travel as their int64 bits, so -0.0 and NaN payloads survive.
 // replicate_scatter replaces shuffle_pack.py · replicate_scatter_pallas:
-//   the same load from source row vidx[j] / repl, where ok[j], vidx[j] >= 0
-//   and the row lies in range, else 0. vidx >= 0 is checked first, so the
-//   truncating division equals the reference's floor division.
+//   the same gather from source row vidx[j] / repl, where ok[j],
+//   vidx[j] >= 0 and the row lies in range, else 0. vidx >= 0 is checked
+//   first, so the truncating division equals the reference's floor
+//   division.
+//   Both are one kernel, pack_rows_kernel, over tiles of PACK_TILE
+//   consecutive slots. A persistent grid of PACK_PER_SM blocks an SM
+//   walks the tiles:
+//   - a tile's idx and ok come into shared memory by cp.async, in 16-byte
+//     chunks from the 16-byte boundary at or below the tile's first byte
+//     (a view need not start on one), and the next tile's into a second
+//     buffer while the block gathers this one, so no value load waits
+//     behind an index load;
+//   - each slot's source row is resolved once, by one thread, into a
+//     shared element offset (-1 for a slot that takes none); the
+//     division by repl happens there, once a slot, in 32 bits for int32
+//     ids;
+//   - a thread's elements of a tile are (slot, lane) pairs PACK_THREADS
+//     apart, stepped with adds and one compare (no division an element),
+//     and it loads PACK_UNROLL lanes (64 bytes) before its stores; with d
+//     even and both bases 16-byte aligned a load and a store move two
+//     lanes (4 loads of 16 bytes in flight, not 8 of 8);
+//   - an empty slot is stored as 0 without a load; the stores stay
+//     coalesced, slots consecutive and lanes innermost, and are marked
+//     evict-first, since nothing here reads them again.
+//   Nothing assumes idx sorted, unique or in range. Tiles of 256 to 1024
+//   slots and 2 to 4 blocks an SM timed alike on the H100 over an
+//   exchange of F's size (the larger tile needs fewer barriers); 6 blocks
+//   an SM capped the registers below what the unrolled loads hold, and
+//   spilled.
 // unpack_cols replaces shuffle_pack.py · unpack_cols_pallas: the (m, d)
 //   wire buffer transposed to (d, m). A block stages a tile of 128 rows by
 //   up to 8 lanes in shared memory (rows padded by one against bank
@@ -30,34 +54,150 @@
 //   every staged key: no assumption that the set is sorted.
 //
 // What bounds them on the card: bytes. pack_rows and replicate_scatter
-// must read m indices and m flags and write m*d lanes, and read the m*d
-// lanes they gather; unpack_cols reads and writes m*d lanes; member_mask
-// reads n keys and writes n flags (the heavy set is a few hundred bytes).
-// Each kernel touches each of those bytes once.
+// must read m indices and m flags and write m*d lanes, and read the d
+// lanes of each row a slot takes; unpack_cols reads and writes m*d
+// lanes; member_mask reads n keys and writes n flags (the heavy set is a
+// few hundred bytes). Each kernel touches each of those bytes once.
+// The gather itself adds what no design inside the kernel removes: the
+// slots of one destination take rows far apart, so a 32-byte sector that
+// rows bound for two destinations share is fetched twice, and a row that
+// straddles sectors pulls bytes it does not use. chip_smoke.py times the
+// captured calls again with the slots sorted by source row, which reads
+// the same rows in order: the difference is what the scattered rows cost.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define I64_MAX_ 0x7fffffffffffffffLL
 
-template <typename IdxT, typename OkT, bool REPL>
-__global__ void pack_rows_kernel(const int64_t* __restrict__ values,
-                                 int64_t r, int d,
-                                 const IdxT* __restrict__ idx,
-                                 const OkT* __restrict__ ok, int64_t m,
-                                 int64_t repl, int64_t* __restrict__ out) {
-  const int64_t total = m * d;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const int64_t j = t / d;
-    const int lane = (int)(t - j * d);
-    const int64_t v = (int64_t)idx[j];
-    int64_t src = v;
-    bool good = ok[j] != 0 && v >= 0;
-    if (REPL) src = good ? v / repl : -1;
-    good = good && src < r;
-    out[t] = good ? values[src * d + lane] : 0;
+#define PACK_THREADS 256
+#define PACK_TILE 1024    // slots a tile
+#define PACK_UNROLL 8     // lanes a thread loads before its stores
+#define PACK_PER_SM 4     // blocks of the persistent grid an SM
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+// `bytes` bytes from p into sh by cp.async, in 16-byte chunks from the
+// 16-byte boundary at or below p (those bytes before p lie in p's own
+// 16-byte block, so inside its allocation); the last chunk stops at
+// p + bytes and is zero-filled beyond.
+__device__ __forceinline__ void stage_bytes(int4* sh, const void* p,
+                                            int bytes) {
+  const uintptr_t a = (uintptr_t)p;
+  const char* base = (const char*)(a & ~(uintptr_t)15);
+  const int total = (int)(a & 15) + bytes;
+  for (int c = threadIdx.x; 16 * c < total; c += PACK_THREADS)
+    cp_async16(sh + c, base + 16 * c, min(16, total - 16 * c));
+}
+
+// where the bytes of p begin in the chunks stage_bytes copied from p
+template <typename T>
+__device__ __forceinline__ const T* staged(const int4* sh, const T* p) {
+  return (const T*)((const char*)sh + ((uintptr_t)p & 15));
+}
+
+// one tile's idx and ok bytes, with room for the head below the first
+template <typename IdxT, typename OkT>
+struct PackStage {
+  int4 idx[PACK_TILE * sizeof(IdxT) / 16 + 1];
+  int4 ok[(PACK_TILE * sizeof(OkT) + 15) / 16 + 1];
+};
+
+// VEC lanes moved by one load and one store
+template <int VEC> struct Lanes;
+template <> struct Lanes<1> {
+  typedef long long T;
+  __device__ static T zero() { return 0; }
+};
+template <> struct Lanes<2> {
+  typedef longlong2 T;
+  __device__ static T zero() { return make_longlong2(0, 0); }
+};
+
+template <typename IdxT, typename OkT, bool REPL, int VEC>
+__global__ void __launch_bounds__(PACK_THREADS, PACK_PER_SM)
+pack_rows_kernel(const int64_t* __restrict__ values, int64_t r, int d,
+                 const IdxT* __restrict__ idx, const OkT* __restrict__ ok,
+                 int64_t m, int64_t repl, int64_t* __restrict__ out) {
+  typedef typename Lanes<VEC>::T V;
+  constexpr int U = PACK_UNROLL / VEC;         // loads in flight a thread
+  __shared__ PackStage<IdxT, OkT> stage[2];
+  __shared__ int64_t off[PACK_TILE];
+  const int64_t tiles = (m + PACK_TILE - 1) / PACK_TILE;
+  const int du = d / VEC;                      // units of VEC lanes a slot
+  // this thread's first (slot, unit) of every tile, and the step between
+  // its units: one division each, here, for the whole grid walk
+  const int slot0 = threadIdx.x / du, unit0 = threadIdx.x - slot0 * du;
+  const int step_s = PACK_THREADS / du, step_u = PACK_THREADS - step_s * du;
+  // an int32 id below 2^31 over a repl of 2^31 or more gives row 0 either way
+  const uint32_t repl32 = (uint32_t)(repl < 0x80000000LL ? repl
+                                                         : 0x80000000LL);
+  auto fill = [&](int64_t t, int b) {
+    const int64_t s0 = t * PACK_TILE;
+    const int n = (int)(m - s0 < PACK_TILE ? m - s0 : PACK_TILE);
+    stage_bytes(stage[b].idx, idx + s0, n * (int)sizeof(IdxT));
+    stage_bytes(stage[b].ok, ok + s0, n * (int)sizeof(OkT));
+  };
+  int64_t t = blockIdx.x;
+  if (t < tiles) fill(t, 0);
+  asm volatile("cp.async.commit_group;");
+  for (int b = 0; t < tiles; t += gridDim.x, b ^= 1) {
+    if (t + gridDim.x < tiles) fill(t + gridDim.x, b ^ 1);
+    asm volatile("cp.async.commit_group;");   // empty after the last tile
+    asm volatile("cp.async.wait_group 1;" ::: "memory");  // tile t's copies
+    __syncthreads();
+    const int64_t s0 = t * PACK_TILE;
+    const int n = (int)(m - s0 < PACK_TILE ? m - s0 : PACK_TILE);
+    const IdxT* ti = staged(stage[b].idx, idx + s0);
+    const OkT* to = staged(stage[b].ok, ok + s0);
+    for (int j = threadIdx.x; j < n; j += PACK_THREADS) {
+      const int64_t v = (int64_t)ti[j];
+      int64_t src = -1;
+      if (to[j] != 0 && v >= 0) {
+        if constexpr (!REPL)
+          src = v;
+        else if constexpr (sizeof(IdxT) == 4)
+          src = (uint32_t)v / repl32;
+        else
+          src = (int64_t)((uint64_t)v / (uint64_t)repl);
+        if (src >= r) src = -1;
+      }
+      off[j] = src < 0 ? -1 : src * d;
+    }
+    __syncthreads();
+    int64_t* const o = out + s0 * d;
+    int s = slot0, u = unit0;
+    while (s < n) {
+      int ss[U], uu[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        ss[k] = s;
+        uu[k] = u;
+        s += step_s;
+        u += step_u;
+        if (u >= du) {
+          u -= du;
+          ++s;
+        }
+      }
+      V x[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        x[k] = Lanes<VEC>::zero();
+        if (ss[k] < n) {
+          const int64_t at = off[ss[k]];
+          if (at >= 0) x[k] = __ldg((const V*)(values + at) + uu[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < U; ++k)  // evict-first: values keep more of L2
+        if (ss[k] < n) __stcs((V*)(o + (int64_t)ss[k] * d) + uu[k], x[k]);
+    }
   }
 }
 
@@ -134,20 +274,36 @@ static int blocks_for(int64_t work, int threads) {
   return (int)b;
 }
 
+template <typename IdxT, typename OkT, bool REPL>
+static void launch_tiles(const void* values, int64_t r, int d,
+                        const void* idx, const void* ok, int64_t m,
+                        int64_t repl, void* out, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t tiles = (m + PACK_TILE - 1) / PACK_TILE;
+  const int64_t grid = (int64_t)(sms > 0 ? sms : 1) * PACK_PER_SM;
+  const int B = (int)(tiles < grid ? tiles : grid);
+  const bool pair = d % 2 == 0 &&
+                    ((uintptr_t)values | (uintptr_t)out) % 16 == 0;
+  if (pair)
+    pack_rows_kernel<IdxT, OkT, REPL, 2><<<B, PACK_THREADS, 0, s>>>(
+        (const int64_t*)values, r, d, (const IdxT*)idx, (const OkT*)ok, m,
+        repl, (int64_t*)out);
+  else
+    pack_rows_kernel<IdxT, OkT, REPL, 1><<<B, PACK_THREADS, 0, s>>>(
+        (const int64_t*)values, r, d, (const IdxT*)idx, (const OkT*)ok, m,
+        repl, (int64_t*)out);
+}
+
 template <typename IdxT, typename OkT>
 static void launch_pack(const void* values, int64_t r, int d,
                         const void* idx, const void* ok, int64_t m,
                         int64_t repl, void* out, cudaStream_t s) {
-  const int T = 256;
-  const int B = blocks_for(m * d, T);
   if (repl > 0)
-    pack_rows_kernel<IdxT, OkT, true><<<B, T, 0, s>>>(
-        (const int64_t*)values, r, d, (const IdxT*)idx, (const OkT*)ok, m,
-        repl, (int64_t*)out);
+    launch_tiles<IdxT, OkT, true>(values, r, d, idx, ok, m, repl, out, s);
   else
-    pack_rows_kernel<IdxT, OkT, false><<<B, T, 0, s>>>(
-        (const int64_t*)values, r, d, (const IdxT*)idx, (const OkT*)ok, m,
-        1, (int64_t*)out);
+    launch_tiles<IdxT, OkT, false>(values, r, d, idx, ok, m, repl, out, s);
 }
 
 // idx_bytes: 4 (int32) or 8 (int64); ok_bytes: 1 (bool) or 4 (int32);
