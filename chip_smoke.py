@@ -26,7 +26,12 @@ wrong or if there is no CUDA device. Phases:
                pack_rows and replicate_scatter also around their
                1024-slot tiles (one, two and more tiles than the grid
                has blocks, d = 1 to 12, int64 ids beyond 2^32, views
-               off a 16-byte boundary), two launches bit-identical;
+               off a 16-byte boundary), gather_rows around its 1024-row
+               tiles (the same edges, ids -1, r, INT64_MAX and
+               INT64_MIN), rle_expand around its scan and row tiles
+               (one run of over 2^20 rows, runs of 1, more scan tiles
+               than resident blocks, r = 1, ``out`` off a 16-byte
+               boundary), two launches bit-identical;
   A quickstart examples/quickstart.py's query with use_kernel=True
                matches the port's interpreter;
   B n2n TPC-H level 2, domain elimination on, at the SF10 order count:
@@ -38,7 +43,11 @@ wrong or if there is no CUDA device. Phases:
                run: bit-exact against its plain version, and timed with
                CUDA events beside its plain version, one library call
                and the byte bound (segment_sum_first's n, d, k, S and
-               runs logged); a profiled warm run; and four warm
+               runs logged; gather_rows at its largest call of each
+               width d, with n, r, d, the share of ids in range and of
+               rows whose id follows the previous row's within 8, and
+               its time with the ids sorted, which reads the same rows
+               in order); a profiled warm run; and four warm
                calls from an emptied allocator cache with the default
                allocator, then four with expandable segments;
   C the same query with domain elimination off (DeDup + general_join)
@@ -51,6 +60,9 @@ wrong or if there is no CUDA device. Phases:
                _decode_device: bit-equal to the NumPy codec; each decode
                kernel timed at that shape beside its plain version, the
                byte bound and one library call where there is one;
+               rle_expand also on a constant column (one run of 2^20
+               rows), and the device operations of its calls by name
+               with their times (at most two kernels and one memset);
   D stored     the SF5 data written by DatasetWriter.write_parts with
                encoding="auto" and 2^20-row chunks (host time with no
                profiler, bytes and codecs per part), reopened on the
@@ -167,9 +179,10 @@ wrong or if there is no CUDA device. Phases:
                as a yardstick.
 
 The last three lines: nvidia-smi's name and power limit, the per-kernel
-JSON records (phase B's join kernels; D0's decode kernels with D's
-launch counts, bitunpack's from D0 since no column of this data picks
-bitpack; F's segment_sum_first, member_mask, pack_rows and unpack_cols;
+JSON records (phase B's join kernels, gather_rows at each width; D0's
+decode kernels with D's launch counts, bitunpack's from D0 since no
+column of this data picks bitpack, rle_expand also at one run; F's
+segment_sum_first, member_mask, pack_rows and unpack_cols;
 G's replicate_scatter; J's segment_reduce at (a) and at (b) with d = 4;
 K's rwkv6; L's flash_attention at a local and a global layer; each with
 the library call's device time where there is one, and with its path
@@ -265,6 +278,9 @@ JOIN_KERNELS = ("segment_sum_first", "merge_positions", "gather_rows")
 DECODE_KERNELS = ("rle_expand", "delta_unpack", "bitunpack", "dict_gather")
 SHUFFLE_KERNELS = ("member_mask", "pack_rows", "unpack_cols",
                    "replicate_scatter")
+# the kernels whose edge cases phase 2 also launches twice
+REPEATED = ("segment_sum_first", "merge_positions", "gather_rows",
+            "rle_expand", "pack_rows", "replicate_scatter")
 
 
 def log(*a):
@@ -440,7 +456,8 @@ def check_oparts(out_bag, env_np, want=None) -> int:
 class CaptureLargestCalls:
     """While active, keeps the arguments of each kernel dispatch's
     largest call (by element count), to compare and time the kernels at
-    the shapes the main path gives them."""
+    the shapes the main path gives them; for ``gather_rows`` also the
+    largest call of each width d (``by_width``: {d: arguments})."""
 
     def __init__(self, names=JOIN_KERNELS):
         self.names = names
@@ -448,6 +465,7 @@ class CaptureLargestCalls:
     def __enter__(self):
         from repro_torch.kernels import ops as kops
         self.kops, self.args, self._size = kops, {}, {}
+        self.by_width, self._width_size = {}, {}
         self._orig = {n: getattr(kops, n) for n in self.names}
         for n in self.names:
             setattr(kops, n, self._wrap(n, self._orig[n]))
@@ -458,6 +476,10 @@ class CaptureLargestCalls:
             size = sum(a.numel() for a in args if torch.is_tensor(a))
             if size > self._size.get(name, -1):
                 self._size[name], self.args[name] = size, args
+            if name == "gather_rows":
+                d = args[0].shape[1]
+                if size > self._width_size.get(d, -1):
+                    self._width_size[d], self.by_width[d] = size, args
             return fn(*args, **kw)
         return recorder
 
@@ -546,12 +568,13 @@ def decode_fns(name: str, args: tuple):
     from repro_torch.kernels import decode as D
     from repro_torch.kernels import ref as R
     if name == "rle_expand":
-        values, lengths, n = args
+        values, lengths, n = args[:3]
+        out = args[3] if len(args) > 3 else None
         r = values.shape[0]
         library = (lambda: torch.repeat_interleave(values, lengths,
                                                    output_size=n)) \
             if r else None
-        return (lambda: D.rle_expand_cuda(values, lengths, n),
+        return (lambda: D.rle_expand_cuda(values, lengths, n, out=out),
                 lambda: R.rle_expand_ref(values, lengths, n),
                 library, 8 * r + lengths.element_size() * r + 8 * n)
     if name == "delta_unpack":
@@ -659,6 +682,35 @@ def pack_call(name: str, args: tuple):
              f"{taken} slots take a row, {near / max(taken, 1):.1%} of "
              f"them the previous slot's row + 1 to 8, "
              f"{'two lanes' if pair else 'one lane'} a load")
+    return shape, kern
+
+
+def gather_call(args: tuple):
+    """The shape of a gather_rows call: n, r, d, the share of ids in
+    range, the share of rows whose id is the previous row's plus 0 to 8,
+    and whether a load moves two lanes (d even, 16-byte aligned bases);
+    and the same call with idx sorted, checked bit-exact. It reads the
+    same rows, so the bytes are the same: what it saves is what the
+    random reads cost."""
+    from repro_torch.kernels import gather_join as G
+    from repro_torch.kernels import ref as R
+    vals = args[0].contiguous()
+    idx = args[1].to(torch.int64).contiguous()
+    (r, d), n = vals.shape, idx.shape[0]
+    inr = int(((idx >= 0) & (idx < r)).sum())
+    step = idx[1:] - idx[:-1]
+    near = int(((step >= 0) & (step <= 8)).sum())
+    pair = d % 2 == 0 and vals.data_ptr() % 16 == 0
+    s_idx = torch.sort(idx).values
+    del step
+    kern = lambda: G.gather_rows_cuda(vals, s_idx)  # noqa: E731
+    err = max_abs_err(kern(), R.gather_rows_ref(vals, s_idx))
+    torch.cuda.synchronize()
+    assert err == 0.0, f"gather_rows with idx sorted: max |err| {err}"
+    shape = (f"n={n}, r={r}, d={d}, {inr / max(n, 1):.1%} of ids in "
+             f"range, {near / max(n - 1, 1):.1%} of rows the previous "
+             f"row's id + 0 to 8, {'two lanes' if pair else 'one lane'} "
+             f"a load")
     return shape, kern
 
 
@@ -898,6 +950,8 @@ def measure_kernels(captured: dict, launches: dict, tag: str,
         shape = in_order = None
         if name in ("pack_rows", "replicate_scatter"):
             shape, in_order = pack_call(name, args)
+        elif name == "gather_rows":
+            shape, in_order = gather_call(args)
         (dev, plain_dev, lib_dev, order_dev), dev_s = device_ms(
             [kern, plain, library, in_order], [20, 20, 20, 20])
         rec = dict(name=name, route="cuda", source=meta["source"],
@@ -917,10 +971,11 @@ def measure_kernels(captured: dict, launches: dict, tag: str,
         if in_order is not None:
             rec.update(shape=shape, sorted_ms=time_ms(in_order),
                        sorted_device_ms=order_dev)
-            log(f"  [{tag}] {name}'s call: {shape}; with (idx, ok) sorted "
-                f"by source row (the same rows): bit-exact, "
-                f"{rec['sorted_ms']:.4f} ms ({_ms(order_dev)} on the "
-                f"device)")
+            what = "idx sorted" if name == "gather_rows" \
+                else "(idx, ok) sorted by source row"
+            log(f"  [{tag}] {name}'s call: {shape}; with {what} (the same "
+                f"rows): bit-exact, {rec['sorted_ms']:.4f} ms "
+                f"({_ms(order_dev)} on the device)")
         log(f"  [{tag}] {name} at {shapes}: "
             f"{'bit-exact' if err == 0 else 'within bound'}; kernel "
             f"{rec['ms']:.4f} ms ({_ms(dev)} on the device, profile session "
@@ -989,7 +1044,8 @@ def edge_cases(dev, large: bool = True) -> list:
     ids out of range, all rows invalid, runs longer than one thread
     sums, duplicate and INT64_MAX keys, r=1, idx -1 and >= r. ``large``
     adds cases with tens of thousands of rows (many blocks, giant
-    runs)."""
+    runs), ``gather_tile_cases``, ``first_card_cases`` and
+    ``merge_card_cases``."""
     rng = np.random.RandomState(7)
     T = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
     cases = []
@@ -1027,6 +1083,7 @@ def edge_cases(dev, large: bool = True) -> list:
         cases.append(("gather_rows", (T(vals, torch.int64),
                                       T(idx, torch.int64))))
     if large:
+        cases += gather_tile_cases(np.random.RandomState(9), dev)
         rng = np.random.RandomState(8)
         for vals, keys, seg, S in first_card_cases(rng):
             cases.append(("segment_sum_first", (T(vals, torch.float32),
@@ -1183,7 +1240,8 @@ def decode_edge_cases(dev, large: bool = True) -> list:
     k = 1, 15 and 16 with n not a multiple of vpw and lo negative or
     near the int64 limits, codes of -1 and r, an empty dictionary.
     ``large`` adds cases with tens of thousands of rows (many blocks, a
-    constant run, a dictionary too big for shared memory)."""
+    constant run, a dictionary too big for shared memory) and
+    ``rle_card_cases``."""
     from repro_torch.storage import encodings as E
     rng = np.random.RandomState(11)
     T = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
@@ -1246,6 +1304,44 @@ def decode_edge_cases(dev, large: bool = True) -> list:
         bitunpack(6, 14000, -1)
         dict_(5000, rng.randint(-1, 5001, 70000), torch.int32)  # global
         dict_(49, rng.randint(0, 49, 70000), torch.uint8)
+        cases += rle_card_cases(np.random.RandomState(12), dev)
+    return cases
+
+
+def rle_card_cases(rng, dev) -> list:
+    """rle_expand around its 2048-run scan tiles and 1024-row tiles: one
+    run of 2^20 + 12,345 rows; runs of length 1 over 9 scan tiles; runs
+    of 1-2,049 rows that cross row tiles (and whole row tiles inside
+    one run); 2^22 runs over 2,048 scan tiles, more than the blocks the
+    card holds at once (so tiles look back on tiles that have finished);
+    n an exact multiple of the row tile; r = 1 (n = 1 and n = 3); and
+    ``out`` given as a slice 8 bytes off a 16-byte boundary (stored one
+    row a store), and as an aligned slice. A case is (values, lengths,
+    n) or (values, lengths, n, out)."""
+    i64 = np.iinfo(np.int64)
+    cases = []
+
+    def rle(lengths, out_skip=None):
+        lengths = np.asarray(lengths, np.int32)
+        r, n = lengths.shape[0], int(lengths.sum())
+        values = rng.randint(i64.min, i64.max, r, dtype=np.int64)
+        values[:len(PAYLOAD_BITS)] = PAYLOAD_BITS[:r]
+        args = (torch.as_tensor(values, device=dev),
+                torch.as_tensor(lengths, device=dev), n)
+        if out_skip is not None:
+            big = torch.empty((n + out_skip,), dtype=torch.int64, device=dev)
+            args += (big[out_skip:],)
+        cases.append(("rle_expand", args))
+
+    rle([(1 << 20) + 12345])                              # one run
+    rle(np.ones(9 * 2048 + 5))                            # runs of 1
+    rle(rng.choice([1, 2, 7, 2047, 2048, 2049], 3000))    # across tiles
+    rle(rng.randint(1, 3, 1 << 22))                       # 2,048 tiles
+    rle([2048] * 3 + [1] * 2048)                          # n = 4 x 2048
+    rle([1])                                              # r = 1, n = 1
+    rle([3])                                              # r = 1, n = 3
+    rle(rng.randint(1, 8, 5000), out_skip=1)              # 8 bytes off
+    rle(rng.randint(1, 8, 5000), out_skip=2)              # out aligned
     return cases
 
 
@@ -1294,6 +1390,46 @@ def shuffle_edge_cases(dev, large: bool = True) -> list:
     return cases + (pack_tile_cases(rng, dev) if large else [])
 
 
+def view_at(a, dt, skip: int, dev) -> torch.Tensor:
+    """``a`` as a ``dt`` tensor on ``dev`` that starts ``skip`` items into
+    a buffer (so ``skip`` items off the buffer's 16-byte boundary)."""
+    t = torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    big = torch.empty((t.numel() + skip,), dtype=dt, device=dev)
+    big[skip:] = t.reshape(-1)
+    return big[skip:].view(t.shape)
+
+
+def gather_tile_cases(rng, dev) -> list:
+    """gather_rows around the kernel's 1024-row tiles: one tile, one row
+    over, two and three tiles, and more tiles than the grid's blocks
+    (600,001 rows: each block walks several, the next one's ids staged
+    while it gathers), with d from 1 to 12, odd (one lane a load) and
+    even (two); ids 0 (a row of -0.0 and NaN payloads), -1, r, INT64_MAX
+    and INT64_MIN among random ones, some out of range; ``values`` viewed
+    8 bytes off a 16-byte boundary (one lane a load at even d), and ids
+    viewed off one (the staging's head)."""
+    def inputs(r, n, d):
+        vals = rng.randint(-2 ** 62, 2 ** 62, (r, d)).astype(np.int64)
+        vals.reshape(-1)[:len(PAYLOAD_BITS)] = PAYLOAD_BITS
+        idx = rng.randint(-3, r + 3, n).astype(np.int64)
+        idx[:4] = [0, -1, r, I64_MAX]
+        idx[-1] = np.iinfo(np.int64).min
+        return vals, idx
+
+    cases = []
+    sizes = [1024, 1025, 2048, 3077, 9000, 600_001]
+    for d in range(1, 13):
+        n = sizes[d % len(sizes)]
+        vals, idx = inputs(n // 2 + 7, n, d)
+        cases.append(("gather_rows", (view_at(vals, torch.int64, 0, dev),
+                                      view_at(idx, torch.int64, 0, dev))))
+    for d, n in [(2, 5000), (4, 2100), (6, 600_001), (5, 3100)]:
+        vals, idx = inputs(1500, n, d)                 # off a boundary
+        cases.append(("gather_rows", (view_at(vals, torch.int64, 1, dev),
+                                      view_at(idx, torch.int64, 1, dev))))
+    return cases
+
+
 def pack_tile_cases(rng, dev) -> list:
     """pack_rows and replicate_scatter around the kernel's 1024-slot
     tiles: one tile, one slot over, two and three tiles, and more tiles
@@ -1304,11 +1440,8 @@ def pack_tile_cases(rng, dev) -> list:
     -0.0 and NaN payloads taken; ``values`` viewed 8 bytes off a 16-byte
     boundary (one lane a load at even d), and ids and flags viewed off
     one (the staging's head)."""
-    def view(a, dt, skip):         # ``a`` as ``dt``, ``skip`` items into
-        t = torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # a buffer
-        big = torch.empty((t.numel() + skip,), dtype=dt, device=dev)
-        big[skip:] = t.reshape(-1)
-        return big[skip:].view(t.shape)
+    def view(a, dt, skip):
+        return view_at(a, dt, skip, dev)
 
     def inputs(r, m, d, repl):
         vals = rng.randint(-2 ** 62, 2 ** 62, (r, d)).astype(np.int64)
@@ -1392,16 +1525,18 @@ def phase_kernels(dev) -> None:
         kern, plain, _, _ = kernel_fns(name, args)
         got = kern()
         err = max_abs_err(got, plain())
-        if name in ("segment_sum_first", "merge_positions", "pack_rows",
-                    "replicate_scatter"):
-            err = max(err, max_abs_err(got, kern()))   # launches repeat
+        if name in REPEATED:
+            # launches repeat (a copy: a second launch rewrites ``out``)
+            got = tuple(g.clone() for g in
+                        (got if isinstance(got, tuple) else (got,)))
+            err = max(err, max_abs_err(got, kern()))
         torch.cuda.synchronize()
         assert err == 0.0, (name, [tuple(a.shape) if torch.is_tensor(a)
                                    else a for a in args], err)
         n += 1
     log(f"[2 kernels] {n} edge cases: every kernel bit-exact against its "
-        f"plain version (segment_sum_first, merge_positions, pack_rows and "
-        f"replicate_scatter: two launches bit-identical)")
+        f"plain version ({', '.join(REPEATED)}: two launches "
+        f"bit-identical)")
 
 
 def phase_quickstart(dev) -> None:
@@ -1460,9 +1595,10 @@ def phase_quickstart(dev) -> None:
 
 
 def phase_tpch(tag: str, scale: int, seed: int, domain_elimination: bool,
-               dev) -> list:
+               dev, widths: bool = False) -> list:
     """Phases B and C: one n2n level-2 run at ``scale`` orders; returns
-    the per-kernel records."""
+    the per-kernel records. ``widths``: also measure gather_rows at its
+    largest call of each other width d."""
     from repro_torch.columnar.table import env_from_numpy
     from repro_torch.core import codegen as CG
     from repro_torch.core import materialization as M
@@ -1513,6 +1649,11 @@ def phase_tpch(tag: str, scale: int, seed: int, domain_elimination: bool,
         bags_bit_equal(out[name], plain[name], name)
     log(f"[{tag}] use_kernel=False run bit-equal on {sorted(out)}")
     recs = measure_kernels(cap.args, counts, tag)
+    largest = cap.args["gather_rows"][0].shape[1]
+    for d, args in sorted(cap.by_width.items()) if widths else ():
+        if d != largest:     # the largest call of each other width
+            recs += measure_kernels({"gather_rows": args}, counts,
+                                    f"{tag}, gather_rows at d={d}")
     profile_run(lambda: exe(env), tag)
     del out, plain, cap
     fixed = warm_calls_ms(lambda: exe(env))
@@ -1559,7 +1700,48 @@ def phase_decode(env_np: dict, dev) -> list:
     counts = kops.launch_counts()
     assert all(counts[k] > 0 for k in DECODE_KERNELS), counts
     log(f"[D0 decode] launches {counts}")
-    return measure_kernels(cap.args, counts, "D0")
+    recs = measure_kernels(cap.args, counts, "D0")
+    rle_call_kernels(*cap.args["rle_expand"], "D0's chunk")
+    # a constant column, stored as one run of the chunk's rows
+    enc, blob = E.encode_chunk(np.full(n, 7, np.int64), "rle")
+    with CaptureLargestCalls(("rle_expand",)) as one:
+        got = RD._decode_device(enc, blob, dev)
+    assert bool((got == 7).all()) and enc["members"][0][2] == 1, enc
+    for rec in measure_kernels(one.args, counts, "D0 one run"):
+        rec["shape"] = f"one run of {n} rows (a constant column)"
+        recs.append(rec)
+    rle_call_kernels(*one.args["rle_expand"], "one run")
+    return recs
+
+
+def rle_call_kernels(values, lengths, n, what: str) -> None:
+    """The device operations of an rle_expand call, by name, with each
+    one's mean device time over 10 calls, from a complete profile (up to
+    6 sessions, until both kernels show): at most two kernels and one
+    memset a call."""
+    from repro_torch.kernels import decode as D
+    want, calls = {"rle_scan_kernel", "rle_expand_kernel"}, 10
+    for sessions in range(1, 7):
+        records, complete = profiled(
+            lambda: D.rle_expand_cuda(values, lengths, n), iters=calls,
+            pad_s=sessions - 1.0)
+        by: dict = {}
+        for e in records:
+            name = e.name.replace("(anonymous namespace)::", "")
+            by.setdefault(name.split("(")[0].strip(), []).append(
+                e.time_range.elapsed_us())
+        if complete and want <= set(by):
+            break
+    ops = {k: f"{len(t) / calls:g} a call, {sum(t) / len(t):.2f} us"
+           for k, t in sorted(by.items())}
+    log(f"[D0 decode] rle_expand at {what}: device operations (profile "
+        f"session {sessions}, "
+        f"{'both kernels seen' if want <= set(by) else 'INCOMPLETE'}): "
+        f"{ops}")
+    kernels = [k for k in by if not k.startswith(("Memset", "Memcpy"))]
+    assert want <= set(by) and len(kernels) <= 2 \
+        and len(by) - len(kernels) <= 1 \
+        and all(len(t) == calls for t in by.values()), ops
 
 
 def dataset_report(w) -> None:
@@ -3519,7 +3701,7 @@ def main() -> int:
     phase_quickstart(dev)
     lap("0-A")
     recs_b = phase_tpch("B n2n-L2 domain-elim", SCALE_B, args.seed,
-                        True, dev)
+                        True, dev, widths=True)
     lap("B")
     phase_tpch("C n2n-L2 no-domain-elim", SCALE_C, args.seed, False,
                dev)

@@ -9,16 +9,45 @@
 //   out[i] = values[j] for the run j covering row i. The Pallas kernel
 //   took run starts and ends made on the host and compared every output
 //   row with every run in dense one-hot tiles (O(n*r)). Here the stored
-//   run lengths cross to the card at their width (int32) and an
-//   exclusive scan of them (the three passes of delta_unpack) writes the
-//   run starts to scratch memory. Then output rows go to threads: a
-//   block owns a tile of 1024 rows, one thread finds the runs that cover
-//   the tile with two binary searches over the starts, the block stages
-//   those runs' starts and values in shared memory (a tile meets at most
-//   1024 runs, since every run has at least one row), and each thread
-//   finds its rows' runs by a binary search in shared memory. A constant
-//   column (one run of 2^20 rows) and a label column (runs of 1-7 rows)
-//   cost the same per row.
+//   run lengths cross to the card at their width (int32), and a call is
+//   one memset and two kernels:
+//   - rle_scan_kernel: a single-pass scan of the lengths into the run
+//     starts, with decoupled look-back (Merrill and Garland, 2016). A
+//     block takes the next tile of RLE_SCAN_TILE runs from a ticket
+//     counter, so a tile waits only on tiles already started; it scans
+//     its tile, publishes its sum, and warp 0 looks back over the tiles
+//     before it, 32 * RLE_LOOK at a time, adding sums back to the
+//     nearest tile that has published its inclusive prefix; then it
+//     publishes its own. A status word is sum << 2 | flag (sums below
+//     2^61, hence r < 2^30): one word carries all that it publishes, so
+//     its loads and stores are relaxed ones at the card's scope (acquire
+//     and release would order nothing that the word does not hold, and
+//     timed slower). The block writes its runs' starts and, for each row
+//     tile of RLE_ROWS rows whose first row its runs cover, that tile's
+//     first run: a binary search over the staged starts, the row tiles
+//     spread over the block's threads, so that a run of 2^20 rows costs
+//     the block 1024 short searches, 4 a thread.
+//     The status words and the counter are cleared by one
+//     cudaMemsetAsync before it.
+//   - rle_expand_kernel: a block a row tile stages the runs from its
+//     first run to the next tile's (at most RLE_ROWS + 1 runs, every run
+//     having a row) in shared memory; each thread finds the run of its
+//     first row by one binary search there and walks forward over its
+//     RLE_ITEMS consecutive rows; the tile goes out through shared memory
+//     in coalesced stores, 16 bytes where out is 16-byte aligned. A
+//     constant column (one run of 2^20 rows) and a label column (runs of
+//     1-7 rows) spread alike over every block.
+//   What holds it back at a 2^20-row chunk is not bytes but the two
+//   kernels' dependent steps (the ticket, the lengths, the block scan,
+//   the look-back, then the staged window) and the memset: chip_smoke.py
+//   prints each operation's device time at D0's chunk and at a chunk of
+//   one run. Tried and dropped (a script kept out of the tree): one kernel
+//   whose later tickets expand row tiles once every scan tile is done
+//   (its waiting blocks slowed the scan), a launch of the expansion as a
+//   programmatic dependent of the scan, wider and narrower tiles, and
+//   an expansion that rescans the lengths instead of reading starts.
+//   Lengths below 1 break the contract: the result is then unspecified,
+//   but every index stays inside its array.
 // delta_unpack replaces decode.py · delta_unpack_pallas:
 //   out = first + inclusive prefix sum of unzigzag(z), modulo 2^64.
 //   The Pallas kernel carried the running total through a sequential
@@ -42,7 +71,7 @@
 // at their stored widths and write 8 bytes per output row; the one-byte
 // members of the TPC-H chunks make the int64 output write most of the
 // traffic (delta_unpack also reads z a second time in its third pass,
-// rle_expand its lengths twice and its starts once more).
+// rle_expand its starts once more).
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
@@ -51,9 +80,14 @@
 
 namespace {
 
+constexpr int RLE_SCAN_THREADS = 256;
+constexpr int RLE_SCAN_ITEMS = 8;
+constexpr int RLE_SCAN_TILE = RLE_SCAN_THREADS * RLE_SCAN_ITEMS;  // runs
 constexpr int RLE_THREADS = 256;
 constexpr int RLE_ITEMS = 4;
-constexpr int RLE_TILE = RLE_THREADS * RLE_ITEMS;
+constexpr int RLE_ROWS = RLE_THREADS * RLE_ITEMS;  // rows an expand tile
+constexpr int RLE_LOOK = 4;  // tiles a lane reads in a look-back window
+constexpr uint64_t RLE_AGGREGATE = 1, RLE_PREFIX = 2;  // status flags
 
 constexpr int SCAN_THREADS = 256;
 constexpr int SCAN_ITEMS = 8;
@@ -63,83 +97,13 @@ constexpr int CARRY_THREADS = 1024;
 constexpr int GATHER_THREADS = 256;
 constexpr int DICT_SMEM_MAX = 4096;  // entries: 32 KB of int64
 
-// first index in [lo, hi) whose key is > x (or hi)
-__device__ __forceinline__ int64_t search_above(const int64_t* __restrict__ a,
-                                               int64_t lo, int64_t hi,
-                                               int64_t x) {
-  while (lo < hi) {
-    int64_t m = lo + ((hi - lo) >> 1);
-    if (a[m] <= x) lo = m + 1; else hi = m;
-  }
-  return lo;
-}
-
-// first index in [lo, hi) whose key is >= x (or hi)
-__device__ __forceinline__ int64_t search_from(const int64_t* __restrict__ a,
-                                               int64_t lo, int64_t hi,
-                                               int64_t x) {
-  while (lo < hi) {
-    int64_t m = lo + ((hi - lo) >> 1);
-    if (a[m] < x) lo = m + 1; else hi = m;
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(RLE_THREADS)
-rle_expand_kernel(const int64_t* __restrict__ values,
-                  const int64_t* __restrict__ starts, int64_t r, int64_t n,
-                  int64_t* __restrict__ out) {
-  __shared__ int64_t s_start[RLE_TILE];
-  __shared__ int64_t s_val[RLE_TILE];
-  __shared__ int64_t s_first, s_count;
-  const int64_t tile0 = (int64_t)blockIdx.x * RLE_TILE;
-  const int64_t tile1 = tile0 + RLE_TILE < n ? tile0 + RLE_TILE : n;
-  if (threadIdx.x == 0) {
-    // the run covering tile0, and the first run that starts at or after
-    // tile1: the tile's rows lie in runs [j0, j1)
-    int64_t j0 = search_above(starts, 0, r, tile0) - 1;
-    if (j0 < 0) j0 = 0;
-    int64_t j1 = search_from(starts, j0 + 1, r, tile1);
-    int64_t count = j1 - j0;
-    if (count > RLE_TILE) count = RLE_TILE;  // only if runs of length 0
-    s_first = j0;
-    s_count = count;
-  }
-  __syncthreads();
-  const int64_t j0 = s_first;
-  const int count = (int)s_count;
-  for (int t = threadIdx.x; t < count; t += RLE_THREADS) {
-    s_start[t] = starts[j0 + t];
-    s_val[t] = values[j0 + t];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < RLE_ITEMS; ++k) {
-    const int64_t i = tile0 + k * RLE_THREADS + threadIdx.x;
-    if (i < tile1) {
-      int a = 0, b = count;  // last staged run with start <= i
-      while (a < b) {
-        int m = (a + b) >> 1;
-        if (s_start[m] <= i) a = m + 1; else b = m;
-      }
-      out[i] = s_val[a > 0 ? a - 1 : 0];
-    }
-  }
-}
-
 // a stored member widened to the uint64 that the scan adds: delta's
-// zigzag codes decoded, rle's run lengths (at least 1) as they are
+// zigzag codes decoded
 struct Unzigzag {
   template <typename T>
   __device__ __forceinline__ uint64_t operator()(T z) const {
     const uint64_t u = (uint64_t)z;
     return (u >> 1) ^ (0ull - (u & 1ull));
-  }
-};
-
-struct Widen {
-  __device__ __forceinline__ uint64_t operator()(int32_t z) const {
-    return (uint64_t)(int64_t)z;
   }
 };
 
@@ -210,7 +174,7 @@ scan_tile_offsets(uint64_t* __restrict__ tile_sums, int64_t tiles,
 }
 
 // out[i] = tile offset + the tile's sum of F(z) up to row i, inclusive
-// (delta_unpack) or exclusive (rle_expand's run starts)
+// (delta_unpack) or exclusive (set by no caller)
 template <typename T, typename F, bool EXCLUSIVE>
 __global__ void __launch_bounds__(SCAN_THREADS)
 scan_tiles(const T* __restrict__ z, int64_t n,
@@ -249,6 +213,190 @@ scan_tiles(const T* __restrict__ z, int64_t n,
     const int idx = k * SCAN_THREADS + threadIdx.x;
     const int64_t i = base + idx;
     if (i < n) out[i] = (int64_t)s_data[idx];
+  }
+}
+
+// A status word carries all that it publishes (its flag and its sum), so
+// relaxed loads and stores at the card's scope are enough: no other
+// memory is ordered by them.
+__device__ __forceinline__ void st_status(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t ld_status(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// the sum that a status word carries (sum << 2 | flag)
+__device__ __forceinline__ int64_t status_sum(uint64_t w) {
+  return (int64_t)w >> 2;
+}
+
+// One tile of RLE_SCAN_TILE runs a block, in the order of the ticket
+// counter: the runs' starts (the exclusive prefix sum of the lengths),
+// and tile_run[b] for each row tile b whose first row b * RLE_ROWS lies
+// in the tile's rows (the last tile: every row from its first on).
+__global__ void __launch_bounds__(RLE_SCAN_THREADS)
+rle_scan_kernel(const int32_t* __restrict__ lengths, int64_t r, int64_t nb,
+                uint64_t* status, unsigned* ticket,
+                int64_t* __restrict__ starts, int64_t* __restrict__ tile_run) {
+  constexpr int WARPS = RLE_SCAN_THREADS / 32;
+  __shared__ int64_t s_run[RLE_SCAN_TILE];
+  __shared__ uint64_t s_warp[WARPS];
+  __shared__ int64_t s_tile, s_excl;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const int64_t t = s_tile;
+  const int64_t j0 = t * RLE_SCAN_TILE;
+  const int cnt = (int)min((int64_t)RLE_SCAN_TILE, r - j0);
+#pragma unroll
+  for (int k = 0; k < RLE_SCAN_ITEMS; ++k) {  // coalesced load, widened
+    const int x = k * RLE_SCAN_THREADS + threadIdx.x;
+    s_run[x] = x < cnt ? (int64_t)lengths[j0 + x] : 0;
+  }
+  __syncthreads();
+  int64_t run = 0;
+#pragma unroll
+  for (int k = 0; k < RLE_SCAN_ITEMS; ++k)  // this thread's consecutive runs
+    run += s_run[threadIdx.x * RLE_SCAN_ITEMS + k];
+  const int64_t inc =
+      (int64_t)block_inclusive<RLE_SCAN_THREADS>((uint64_t)run, s_warp);
+  const int64_t total = (int64_t)s_warp[WARPS - 1];
+  if (threadIdx.x < 32) {
+    // warp 0: publish the tile's sum, look back, publish its prefix
+    const int lane = threadIdx.x;
+    int64_t excl = 0;
+    if (t == 0) {
+      if (lane == 0) st_status(status, ((uint64_t)total << 2) | RLE_PREFIX);
+    } else {
+      if (lane == 0)
+        st_status(status + t, ((uint64_t)total << 2) | RLE_AGGREGATE);
+      // windows of 32 * RLE_LOOK tiles back from t - 1: lane l reads
+      // tiles top - l, top - 32 - l, ...; all of a window's loads are in
+      // flight at once
+      for (int64_t top = t - 1;; top -= 32 * RLE_LOOK) {
+        uint64_t w[RLE_LOOK];
+        bool wait;
+        do {
+          wait = false;
+#pragma unroll
+          for (int k = 0; k < RLE_LOOK; ++k) {
+            const int64_t q = top - 32 * k - lane;  // before tile 0: a
+            w[k] = q >= 0 ? ld_status(status + q)   // prefix of 0
+                          : RLE_PREFIX;
+            wait |= (w[k] & 3) == 0;
+          }
+        } while (__any_sync(0xffffffffu, wait));
+        // the sums of the tiles down to the nearest prefix, that included
+        int64_t v = 0;
+        bool found = false;  // the same in every lane
+#pragma unroll
+        for (int k = 0; k < RLE_LOOK; ++k) {
+          const unsigned pre =
+              __ballot_sync(0xffffffffu, (w[k] & 3) == RLE_PREFIX);
+          if (!found && (pre == 0 || lane < __ffs(pre)))
+            v += status_sum(w[k]);
+          found |= pre != 0;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, o);
+        excl += v;
+        if (found) break;
+      }
+      if (lane == 0)
+        st_status(status + t, ((uint64_t)(excl + total) << 2) | RLE_PREFIX);
+    }
+    if (lane == 0) s_excl = excl;
+  }
+  __syncthreads();
+  const int64_t excl = s_excl;
+  int64_t acc = excl + (inc - run);
+#pragma unroll
+  for (int k = 0; k < RLE_SCAN_ITEMS; ++k) {  // lengths -> starts
+    const int x = threadIdx.x * RLE_SCAN_ITEMS + k;
+    const int64_t len = s_run[x];
+    s_run[x] = acc;
+    acc += len;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < RLE_SCAN_ITEMS; ++k) {  // coalesced store
+    const int x = k * RLE_SCAN_THREADS + threadIdx.x;
+    if (x < cnt) starts[j0 + x] = s_run[x];
+  }
+  // the row tiles whose first row lies in [excl, excl + total): each
+  // takes the last of this tile's runs that starts at or before it
+  const int64_t end = excl + total;
+  const int64_t b0 = excl <= 0 ? 0 : (excl - 1) / RLE_ROWS + 1;
+  const int64_t b1 = j0 + cnt >= r ? nb
+                     : end <= 0  ? 0
+                                 : min(nb, (end - 1) / RLE_ROWS + 1);
+  for (int64_t b = b0 + threadIdx.x; b < b1; b += RLE_SCAN_THREADS) {
+    const int64_t row = b * RLE_ROWS;
+    int a = 0, c = cnt;  // the first staged start above row
+    while (a < c) {
+      const int m = (a + c) >> 1;
+      if (s_run[m] <= row) a = m + 1; else c = m;
+    }
+    tile_run[b] = j0 + (a > 0 ? a - 1 : 0);
+  }
+}
+
+// One row tile of RLE_ROWS rows a block: out[i] = values[j] for the last
+// run j that starts at or before row i.
+__global__ void __launch_bounds__(RLE_THREADS)
+rle_expand_kernel(const int64_t* __restrict__ values,
+                  const int64_t* __restrict__ starts,
+                  const int64_t* __restrict__ tile_run, int64_t r, int64_t n,
+                  int64_t nb, bool vec, int64_t* __restrict__ out) {
+  __shared__ __align__(16) int64_t s_start[RLE_ROWS + 1];
+  __shared__ int64_t s_val[RLE_ROWS + 1];
+  const int64_t b = blockIdx.x;
+  const int64_t row0 = b * RLE_ROWS;
+  // the runs from the one covering this tile's first row to the one
+  // covering the next tile's (clamped: in range whatever the lengths)
+  const int64_t j0 = min(max(tile_run[b], (int64_t)0), r - 1);
+  const int64_t j1 = b + 1 < nb ? min(max(tile_run[b + 1], j0), r - 1)
+                                : r - 1;
+  const int count = (int)min(j1 - j0 + 1, (int64_t)RLE_ROWS + 1);
+  for (int x = threadIdx.x; x < count; x += RLE_THREADS) {
+    s_start[x] = starts[j0 + x];
+    s_val[x] = values[j0 + x];
+  }
+  __syncthreads();
+  const int64_t i0 = row0 + threadIdx.x * RLE_ITEMS;
+  int a = 0, c = count;  // the first staged start above i0
+  while (a < c) {
+    const int m = (a + c) >> 1;
+    if (s_start[m] <= i0) a = m + 1; else c = m;
+  }
+  int j = a > 0 ? a - 1 : 0;
+  int64_t v[RLE_ITEMS];
+#pragma unroll
+  for (int k = 0; k < RLE_ITEMS; ++k) {  // forward over consecutive rows
+    while (j + 1 < count && s_start[j + 1] <= i0 + k) ++j;
+    v[k] = s_val[j];
+  }
+  __syncthreads();  // s_start now holds the tile's rows
+#pragma unroll
+  for (int k = 0; k < RLE_ITEMS; ++k)
+    s_start[threadIdx.x * RLE_ITEMS + k] = v[k];
+  __syncthreads();
+  const int rows = (int)min((int64_t)RLE_ROWS, n - row0);
+  int64_t* const o = out + row0;
+  if (vec) {
+    const longlong2* s2 = reinterpret_cast<const longlong2*>(s_start);
+    longlong2* o2 = reinterpret_cast<longlong2*>(o);
+    for (int x = threadIdx.x; 2 * x + 1 < rows; x += RLE_THREADS)
+      o2[x] = s2[x];
+    if ((rows & 1) && threadIdx.x == 0) o[rows - 1] = s_start[rows - 1];
+  } else {
+    for (int x = threadIdx.x; x < rows; x += RLE_THREADS) o[x] = s_start[x];
   }
 }
 
@@ -326,20 +474,42 @@ void dict_launch(const void* values, int64_t r, const void* codes,
 
 }  // namespace
 
-// lengths: int32, as stored; scratch holds r + ceil(r / 2048) int64 (the
-// run starts, then the scan's tiles)
+// lengths: int32, as stored, r < 2^30; scratch: 8-byte aligned, of
+// scratch_len >= ceil(r / 2048) + 1 + r + ceil(n / 1024) int64 — the scan
+// tiles' status words and the ticket counter (cleared here), the run
+// starts, each row tile's first run. Returns cudaErrorInvalidValue for
+// arguments it does not take, else cudaGetLastError().
+// int64 entries of rle_expand_launch's scratch for r runs and n rows: a
+// status word a scan tile and the ticket counter, the r run starts, and
+// the first run of each row tile
+extern "C" int64_t rle_scratch_len(int64_t r, int64_t n) {
+  return (r + RLE_SCAN_TILE - 1) / RLE_SCAN_TILE + 1 + r +
+         (n + RLE_ROWS - 1) / RLE_ROWS;
+}
+
 extern "C" int rle_expand_launch(const void* values, const void* lengths,
                                  int64_t r, int64_t n, void* scratch,
-                                 void* out, void* stream) {
-  if (n > 0 && r > 0) {
-    int64_t* starts = (int64_t*)scratch;
-    cudaStream_t s = (cudaStream_t)stream;
-    scan_launch<int32_t, Widen, true>(lengths, r, 0ull, starts + r, starts,
-                                      s);
-    const int64_t blocks = (n + RLE_TILE - 1) / RLE_TILE;
-    rle_expand_kernel<<<(unsigned)blocks, RLE_THREADS, 0, s>>>(
-        (const int64_t*)values, starts, r, n, (int64_t*)out);
-  }
+                                 int64_t scratch_len, void* out,
+                                 void* stream) {
+  if (n <= 0 || r <= 0) return (int)cudaGetLastError();
+  const int64_t tiles = (r + RLE_SCAN_TILE - 1) / RLE_SCAN_TILE;
+  const int64_t nb = (n + RLE_ROWS - 1) / RLE_ROWS;
+  if (r >= (1LL << 30) || nb > 0x7fffffffLL || scratch == nullptr ||
+      ((uintptr_t)scratch & 7) != 0 || scratch_len < rle_scratch_len(r, n))
+    return (int)cudaErrorInvalidValue;
+  uint64_t* status = (uint64_t*)scratch;
+  unsigned* ticket = (unsigned*)(status + tiles);
+  int64_t* starts = (int64_t*)(status + tiles + 1);
+  int64_t* tile_run = starts + r;
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = cudaMemsetAsync(
+      status, 0, (size_t)(tiles + 1) * sizeof(uint64_t), s);
+  if (err != cudaSuccess) return (int)err;
+  rle_scan_kernel<<<(unsigned)tiles, RLE_SCAN_THREADS, 0, s>>>(
+      (const int32_t*)lengths, r, nb, status, ticket, starts, tile_run);
+  rle_expand_kernel<<<(unsigned)nb, RLE_THREADS, 0, s>>>(
+      (const int64_t*)values, starts, tile_run, r, n, nb,
+      ((uintptr_t)out & 15) == 0, (int64_t*)out);
   return (int)cudaGetLastError();
 }
 

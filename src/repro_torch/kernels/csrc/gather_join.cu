@@ -7,16 +7,47 @@
 // INT64_MAX (the padding of invalid build rows) are ordinary values.
 // gather_rows replaces gather_join.py · gather_rows_pallas:
 // out[i, :] = values[idx[i], :] over int64 bit-view lanes, 0 for an index
-// outside [0, r).
+// outside [0, r). Floats travel as their int64 bits, so -0.0 and NaN
+// payloads survive.
 //
 // What bounds them on the card: bytes, in principle. merge_positions must
 // read the r keys and n queries once and write 2n int32 (8r + 8n + 8n
 // bytes); gather_rows must read n indices and n*d lanes and write n*d
 // lanes (8n + 16nd bytes). The Pallas kernels compared every query with
 // every key (and every output row with every source row) in dense
-// one-hot tiles shaped for the MXU, O(n*r) work. Each gathered lane is
-// one direct load: one thread per (row, lane), so neighbouring threads
-// write neighbouring addresses.
+// one-hot tiles shaped for the MXU, O(n*r) work.
+//
+// gather_rows gathers each row directly, over tiles of GATHER_TILE
+// consecutive rows walked by a persistent grid of GATHER_PER_SM blocks an
+// SM (the design of shuffle_pack.cu's pack_rows_kernel, specialised to
+// int64 ids and no flags):
+//   - a tile's ids come into shared memory by cp.async, in 16-byte chunks
+//     from the 16-byte boundary at or below the tile's first byte (a view
+//     need not start on one), and the next tile's into a second buffer
+//     while the block gathers this one, so no value load waits behind an
+//     id load; the ids are read with an evict-first hint, and the output
+//     is stored evict-first (__stcs), so that L2 keeps what it can of
+//     values, the one array read at random;
+//   - each row's element offset is resolved once, by one thread, into
+//     shared memory: -1 for an id outside [0, r), so that such a row is
+//     stored as 0 without a load;
+//   - a thread's elements of a tile are (row, lane) pairs GATHER_THREADS
+//     apart, stepped with adds and one compare (no division an element),
+//     and it issues GATHER_UNROLL lanes of loads (64 bytes) before its
+//     stores; with d even and both bases 16-byte aligned a load and a
+//     store move two lanes;
+//   - the stores stay coalesced: rows consecutive, lanes innermost.
+// Nothing assumes idx sorted, unique or in range. What no design inside
+// the kernel removes is the gather's own waste: a row read at random pulls
+// whole 32-byte sectors, and rows far apart share none. chip_smoke.py
+// times the captured calls again with idx sorted, which reads the same
+// rows in order: the difference is what the random reads cost.
+// The tile and the blocks an SM were chosen by timing tiles of 256, 512
+// and 1024 rows at 2, 3 and 4 blocks an SM at B's two call shapes on an
+// H100: with random ids the choice hardly matters (the reads bound
+// them); with the ids sorted, 1024 rows at 3 or 4 blocks an SM (or 512
+// at 4) ran fastest and 256 at 2 slowest. 2048 rows exceed the 48 KB of
+// static shared memory.
 //
 // merge_positions searches instead: one thread per query, so what
 // bounds it is the 32-byte sectors each query pulls from L2 and device
@@ -84,6 +115,57 @@ __device__ __forceinline__ void count_sector(const int64_t* __restrict__ arr,
       le += x[u] <= q;
     }
 }
+
+#define GATHER_THREADS 256
+#define GATHER_TILE 1024   // rows a tile
+#define GATHER_PER_SM 4    // blocks of the persistent grid an SM
+#define GATHER_UNROLL 8    // lanes a thread loads before its stores
+
+// an L2 policy that evicts the lines it tags first
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes, uint64_t policy) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;"
+      ::"r"(s), "l"(src), "r"(src_bytes), "l"(policy));
+}
+
+// `bytes` bytes from p into sh by cp.async, in 16-byte chunks from the
+// 16-byte boundary at or below p (those bytes before p lie in p's own
+// 16-byte block, so inside its allocation); the last chunk stops at
+// p + bytes and is zero-filled beyond.
+__device__ __forceinline__ void stage_bytes(int4* sh, const void* p,
+                                            int bytes, uint64_t policy) {
+  const uintptr_t a = (uintptr_t)p;
+  const char* base = (const char*)(a & ~(uintptr_t)15);
+  const int total = (int)(a & 15) + bytes;
+  for (int c = threadIdx.x; 16 * c < total; c += GATHER_THREADS)
+    cp_async16(sh + c, base + 16 * c, min(16, total - 16 * c), policy);
+}
+
+// where the bytes of p begin in the chunks stage_bytes copied from p
+template <typename T>
+__device__ __forceinline__ const T* staged(const int4* sh, const T* p) {
+  return (const T*)((const char*)sh + ((uintptr_t)p & 15));
+}
+
+// VEC lanes moved by one load and one store
+template <int VEC> struct Lanes;
+template <> struct Lanes<1> {
+  typedef long long T;
+  __device__ static T zero() { return 0; }
+};
+template <> struct Lanes<2> {
+  typedef longlong2 T;
+  __device__ static T zero() { return make_longlong2(0, 0); }
+};
 
 __global__ void merge_heads_kernel(const int64_t* __restrict__ keys,
                                    int64_t r, int64_t* __restrict__ heads) {
@@ -168,18 +250,73 @@ __global__ void __launch_bounds__(MERGE_THREADS, 1)
   }
 }
 
-__global__ void gather_rows_kernel(const int64_t* __restrict__ values,
-                                   int64_t r, int d,
-                                   const int64_t* __restrict__ idx, int64_t n,
-                                   int64_t* __restrict__ out) {
-  int64_t total = n * d;
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += stride) {
-    int64_t i = t / d;
-    int j = (int)(t - i * d);
-    int64_t src = idx[i];
-    out[t] = (src >= 0 && src < r) ? values[src * d + j] : 0;
+template <int VEC>
+__global__ void __launch_bounds__(GATHER_THREADS, GATHER_PER_SM)
+gather_rows_kernel(const int64_t* __restrict__ values, int64_t r, int d,
+                   const int64_t* __restrict__ idx, int64_t n,
+                   int64_t* __restrict__ out) {
+  typedef typename Lanes<VEC>::T V;
+  constexpr int U = GATHER_UNROLL / VEC;       // loads in flight a thread
+  // a tile's ids, with room for the head below the first
+  __shared__ int4 stage[2][GATHER_TILE / 2 + 1];
+  __shared__ int64_t off[GATHER_TILE];
+  const uint64_t first = evict_first_policy();
+  const int64_t tiles = (n + GATHER_TILE - 1) / GATHER_TILE;
+  const int du = d / VEC;                      // units of VEC lanes a row
+  // this thread's first (row, unit) of every tile, and the step between
+  // its units: one division each, here, for the whole grid walk
+  const int row0 = threadIdx.x / du, unit0 = threadIdx.x - row0 * du;
+  const int step_s = GATHER_THREADS / du;
+  const int step_u = GATHER_THREADS - step_s * du;
+  auto fill = [&](int64_t t, int b) {
+    const int64_t s0 = t * GATHER_TILE;
+    const int rows = (int)(n - s0 < GATHER_TILE ? n - s0 : GATHER_TILE);
+    stage_bytes(stage[b], idx + s0, rows * 8, first);
+  };
+  int64_t t = blockIdx.x;
+  if (t < tiles) fill(t, 0);
+  asm volatile("cp.async.commit_group;");
+  for (int b = 0; t < tiles; t += gridDim.x, b ^= 1) {
+    if (t + gridDim.x < tiles) fill(t + gridDim.x, b ^ 1);
+    asm volatile("cp.async.commit_group;");   // empty after the last tile
+    asm volatile("cp.async.wait_group 1;" ::: "memory");  // tile t's copies
+    __syncthreads();
+    const int64_t s0 = t * GATHER_TILE;
+    const int rows = (int)(n - s0 < GATHER_TILE ? n - s0 : GATHER_TILE);
+    const int64_t* ti = staged(stage[b], idx + s0);
+    for (int j = threadIdx.x; j < rows; j += GATHER_THREADS) {
+      const int64_t v = ti[j];
+      off[j] = (v >= 0 && v < r) ? v * d : -1;
+    }
+    __syncthreads();
+    int64_t* const o = out + s0 * d;
+    int s = row0, u = unit0;
+    while (s < rows) {
+      int ss[U], uu[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        ss[k] = s;
+        uu[k] = u;
+        s += step_s;
+        u += step_u;
+        if (u >= du) {
+          u -= du;
+          ++s;
+        }
+      }
+      V x[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        x[k] = Lanes<VEC>::zero();
+        if (ss[k] < rows) {
+          const int64_t at = off[ss[k]];
+          if (at >= 0) x[k] = __ldg((const V*)(values + at) + uu[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < U; ++k)
+        if (ss[k] < rows) __stcs((V*)(o + (int64_t)ss[k] * d) + uu[k], x[k]);
+    }
   }
 }
 
@@ -241,11 +378,22 @@ extern "C" int merge_positions_launch(const void* keys, int64_t r,
 extern "C" int gather_rows_launch(const void* values, int64_t r, int d,
                                   const void* idx, int64_t n, void* out,
                                   void* stream) {
-  if (n > 0 && d > 0) {
-    const int T = 256;
-    gather_rows_kernel<<<blocks_for(n * d, T), T, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)values, r, d, (const int64_t*)idx, n,
-        (int64_t*)out);
-  }
+  if (n <= 0 || d <= 0) return (int)cudaGetLastError();
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t tiles = (n + GATHER_TILE - 1) / GATHER_TILE;
+  const int64_t grid = (int64_t)(sms > 0 ? sms : 1) * GATHER_PER_SM;
+  const int B = (int)(tiles < grid ? tiles : grid);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t* v = (const int64_t*)values;
+  const int64_t* i = (const int64_t*)idx;
+  int64_t* o = (int64_t*)out;
+  if (d % 2 == 0 && ((uintptr_t)values | (uintptr_t)out) % 16 == 0)
+    gather_rows_kernel<2><<<B, GATHER_THREADS, 0, st>>>(v, r, d, i, n, o);
+  else
+    gather_rows_kernel<1><<<B, GATHER_THREADS, 0, st>>>(v, r, d, i, n, o);
   return (int)cudaGetLastError();
 }

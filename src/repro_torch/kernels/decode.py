@@ -30,7 +30,7 @@ BITUNPACK_LAUNCHES = 0
 DICT_LAUNCHES = 0
 _FNS = {}
 
-SCAN_TILE = 2048        # rows per block of the scans (decode.cu)
+SCAN_TILE = 2048        # rows per block of delta_unpack's scans (decode.cu)
 U64_MASK = (1 << 64) - 1
 
 # stored member dtypes -> the width code each C entry point takes
@@ -43,12 +43,12 @@ _P, _I64, _U64, _I = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
                       ctypes.c_int)
 
 
-def _fn(name: str, argtypes):
+def _fn(name: str, argtypes, restype=ctypes.c_int):
     f = _FNS.get(name)
     if f is None:
         f = getattr(build.load("decode"), name)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = restype
         _FNS[name] = f
     return f
 
@@ -89,7 +89,8 @@ def rle_expand_cuda(values: torch.Tensor, lengths: torch.Tensor, n: int,
     """(n,) int64: each row takes the value of the run covering it. Run
     ``j`` is ``lengths[j]`` rows long (at least one), the runs tile
     ``[0, n)`` in order; ``lengths`` int32, as the codec stores them.
-    The run starts are scanned on the card."""
+    The run starts are scanned on the card (the C entry point refuses
+    2**30 runs or more)."""
     dev = _check("rle_expand_cuda", ((torch.int64,), (torch.int32,)),
                  values, lengths)
     r, n = values.shape[0], int(n)
@@ -101,12 +102,14 @@ def rle_expand_cuda(values: torch.Tensor, lengths: torch.Tensor, n: int,
     out = _out("rle_expand_cuda", out, n, dev)
     if n == 0:
         return out
-    scratch = torch.empty((r + -(-r // SCAN_TILE),), dtype=torch.int64,
-                          device=dev)
-    fn = _fn("rle_expand_launch", [_P, _P, _I64, _I64, _P, _P, _P])
+    # the scratch's layout is the C library's
+    n_scratch = _fn("rle_scratch_len", [_I64, _I64], _I64)(r, n)
+    scratch = torch.empty((n_scratch,), dtype=torch.int64, device=dev)
+    fn = _fn("rle_expand_launch", [_P, _P, _I64, _I64, _P, _I64, _P, _P])
     with torch.cuda.device(dev):
         err = fn(values.data_ptr(), lengths.data_ptr(), r, n,
-                 scratch.data_ptr(), out.data_ptr(), build.stream_handle(dev))
+                 scratch.data_ptr(), scratch.shape[0], out.data_ptr(),
+                 build.stream_handle(dev))
     build.check(err, "rle_expand")
     build.bump(globals(), "RLE_LAUNCHES")
     return out

@@ -173,6 +173,42 @@ def test_sweep_bit_exact_and_counted(cuda, name, seed):
     assert_bits_equal(to_np(got), to_np(plain(name, args)))
 
 
+def launched_once_twice_alike(name, args):
+    """Launch ``name``'s kernel through its dispatch on ``args``: counted
+    once, bit-exact against the plain version, and a second launch
+    bit-identical to the first."""
+    _, plain_fn, _, _ = chip_smoke.kernel_fns(name, args)
+    kw = {"out": args[3]} if name == "rle_expand" and len(args) > 3 else {}
+    before = TK.launch_counts()[name]
+    got = to_np(getattr(TK, name)(*args[:3], **kw))
+    got = [g.copy() for g in got]               # ``out`` is written again
+    assert TK.launch_counts()[name] == before + 1
+    assert_bits_equal(got, to_np(plain_fn()))
+    assert_bits_equal(got, to_np(getattr(TK, name)(*args[:3], **kw)))
+
+
+@pytest.mark.cuda
+def test_gather_rows_tile_edges_bit_exact_repeatable_counted(cuda):
+    """gather_rows around its 1024-row tiles (``gather_tile_cases``: one,
+    two and more tiles than the grid's blocks, d from 1 to 12, ids -1,
+    r, INT64_MAX and INT64_MIN, -0.0 and NaN payloads, values and ids
+    viewed off a 16-byte boundary)."""
+    for name, args in chip_smoke.gather_tile_cases(
+            np.random.RandomState(9), cuda):
+        launched_once_twice_alike(name, args)
+
+
+@pytest.mark.cuda
+def test_rle_expand_tile_edges_bit_exact_repeatable_counted(cuda):
+    """rle_expand around its scan and row tiles (``rle_card_cases``: one
+    run of more than 2^20 rows, runs of length 1, runs across row tiles,
+    more scan tiles than resident blocks, r = 1, ``out`` off a 16-byte
+    boundary)."""
+    for name, args in chip_smoke.rle_card_cases(np.random.RandomState(12),
+                                                cuda):
+        launched_once_twice_alike(name, args)
+
+
 @pytest.mark.cuda
 def test_wrappers_check_inputs(cuda):
     v = torch.zeros((4, 1), dtype=torch.float64, device=cuda)

@@ -1,5 +1,6 @@
-"""Models, on the CPU, of how the Hopper kernels ``segment_sum_first``
-and ``merge_positions`` split their work, held to the plain versions.
+"""Models, on the CPU, of how the Hopper kernels ``segment_sum_first``,
+``merge_positions`` and ``gather_rows`` split their work, held to the
+plain versions.
 
 A CUDA kernel cannot run here, so these tests run a model of its
 partition logic in Python at a small tile or fence size, with
@@ -13,11 +14,16 @@ integer-valued floats so that every order of summation is exact:
 * ``merge_model`` follows ``csrc/gather_join.cu``'s merge_positions (the
   fences, the binary search over the sectors of the fence bracket in
   the heads (every 4th key), the sector that holds lo, the gallop for
-  hi).
+  hi);
+* ``gather_model`` follows ``csrc/gather_join.cu``'s gather_rows_kernel
+  (the persistent grid's tiles, the ids staged from the 16-byte boundary
+  below them a tile ahead, one offset resolved a row, each thread's
+  (row, lane) walk with two lanes a load at even d) and counts the writes
+  of every output lane, the lanes read and the resolutions.
 
 Each model has a control: the rule broken on purpose (a tile that does
-not own a run writes it; a bracket one fence off) makes it disagree with
-the plain version. The kernels themselves run on the card in
+not own a run writes it; a bracket one fence off; the next tile's ids;
+lanes paired at odd d) makes it disagree with the plain version. The kernels themselves run on the card in
 ``test_torch_cuda.py`` and ``chip_smoke.py`` over the same shapes.
 """
 
@@ -412,3 +418,184 @@ def test_merge_positions_model_control_breaks_the_bracket():
     lo, _ = merge_model(sk, q, max_fences=4, fault="bracket")
     want = TR.merge_positions_ref(torch.from_numpy(sk), torch.from_numpy(q))
     assert not np.array_equal(lo, want[0].numpy())
+
+
+# ---------------------------------------------------------------------------
+# gather_rows
+# ---------------------------------------------------------------------------
+
+SENTINEL = np.int64(-0x5A5A5A5A5A5A5A5B)
+SPECIAL = np.array([-0.0, np.nan, 1.5]).view(np.int64).tolist() \
+    + [0x7FF8_0000_0000_0ABC]
+
+
+def _stage(mem, addr, nbytes):
+    """``stage_bytes``: the chunks copied for ``nbytes`` bytes at byte
+    ``addr`` of ``mem`` (byte 0 16-byte aligned), zero beyond the last
+    byte; and where those bytes begin in them."""
+    base, head = addr & ~15, addr & 15
+    total = head + nbytes
+    sh = np.zeros(16 * -(-total // 16), np.uint8)
+    for c in range(len(sh) // 16):
+        take = min(16, total - 16 * c)
+        sh[16 * c:16 * c + take] = mem[base + 16 * c:base + 16 * c + take]
+    return sh, head
+
+
+def gather_model(values, idx, *, tile=32, threads=16, unroll=4, blocks=3,
+                 idx_shift=0, aligned=True, fault=None):
+    """gather_rows as ``csrc/gather_join.cu``'s gather_rows_kernel splits
+    it: block b of a persistent grid walks tiles b, b + G, ... of
+    ``tile`` rows; a tile's ids staged from the 16-byte boundary at or
+    below their first byte (``idx_shift`` bytes off one), the next
+    tile's before this one is read; each row resolved once to an element
+    offset, -1 out of [0, r); each thread's (row, unit) walk stepped by
+    adds, ``unroll`` lanes loaded before their stores, a unit two lanes
+    where ``d`` is even and the bases aligned. Returns (out, writes of
+    each output lane, lanes read, resolutions). ``fault``: "stale" reads
+    the next tile's staged ids for this tile; "pair_odd" moves two lanes
+    a unit whatever ``d``."""
+    r, d = values.shape
+    n = idx.shape[0]
+    mem = np.zeros(idx_shift + idx.nbytes + 16, np.uint8)
+    mem[idx_shift:idx_shift + idx.nbytes] = idx.view(np.uint8)
+    flat = values.reshape(-1)
+    out = np.full(n * d, SENTINEL, np.int64)
+    writes = np.zeros(n * d, np.int64)
+    reads = resolved = 0
+    vec = 2 if aligned and (d % 2 == 0 or fault == "pair_odd") else 1
+    du = d // vec
+    step_s, step_u = divmod(threads, du)
+    tiles = -(-n // tile)
+    grid = min(tiles, blocks)
+
+    def fill(t):
+        rows = min(tile, n - t * tile)
+        return _stage(mem, idx_shift + 8 * t * tile, 8 * rows)
+
+    for blk in range(grid):
+        stage = [fill(blk), None]
+        t, b = blk, 0
+        while t < tiles:
+            if t + grid < tiles:
+                stage[b ^ 1] = fill(t + grid)
+            s0 = t * tile
+            rows = min(tile, n - s0)
+            sh, head = stage[b ^ 1] if fault == "stale" and t + grid < tiles \
+                else stage[b]
+            ti = sh[head:head + 8 * rows].view(np.int64)
+            if len(ti) < rows:                 # a staged tile shorter
+                ti = np.concatenate([ti, np.zeros(rows - len(ti), np.int64)])
+            off = np.full(rows, -1, np.int64)
+            for j in range(rows):
+                v = int(ti[j])
+                resolved += 1
+                if 0 <= v < r:
+                    off[j] = v * d
+            for tid in range(threads):
+                s, u = divmod(tid, du)
+                while s < rows:
+                    batch = []
+                    for _ in range(unroll // vec):
+                        batch.append((s, u))
+                        s, u = s + step_s, u + step_u
+                        if u >= du:
+                            s, u = s + 1, u - du
+                    xs = []
+                    for ss, uu in batch:
+                        x = np.zeros(vec, np.int64)
+                        if ss < rows and off[ss] >= 0:
+                            at = off[ss] + uu * vec
+                            x = flat[at:at + vec].copy()
+                            reads += vec
+                        xs.append(x)
+                    for (ss, uu), x in zip(batch, xs):
+                        if ss < rows:
+                            at = (s0 + ss) * d + uu * vec
+                            out[at:at + vec] = x
+                            writes[at:at + vec] += 1
+            t, b = t + grid, b ^ 1
+    return out.reshape(n, d), writes, reads, resolved
+
+
+def _gather_inputs(r, n, d, seed):
+    """Values with -0.0 and NaN payloads in row 0; ids in [-3, r + 3)
+    with row 0, -1, r, INT64_MAX and INT64_MIN among them."""
+    rng = np.random.RandomState(seed)
+    values = rng.randint(-2 ** 62, 2 ** 62, (r, d)).astype(np.int64)
+    values.reshape(-1)[:len(SPECIAL)] = SPECIAL[:values.size]
+    idx = rng.randint(-3, r + 3, n).astype(np.int64)
+    idx[:min(n, 4)] = [0, -1, r, I64.max][:min(n, 4)]
+    idx[-1] = I64.min
+    return values, idx
+
+
+def _plain_gather(values, idx):
+    return TR.gather_rows_ref(torch.from_numpy(values),
+                              torch.from_numpy(idx)).numpy()
+
+
+# (name, r, n, d, idx_shift, aligned)
+GATHER = [
+    ("one tile", 20, 32, 1, 0, True),
+    ("two tiles, the second one row", 40, 33, 2, 0, True),
+    ("one row", 3, 1, 3, 0, True),
+    ("fewer rows than threads", 9, 7, 4, 8, True),
+] + [
+    (f"many tiles d={d}", 60, 300, d, 0, True) for d in range(1, 13)
+] + [
+    ("ids 8 bytes off a boundary, odd d", 50, 200, 5, 8, True),
+    ("ids 8 bytes off a boundary, even d", 50, 201, 6, 8, True),
+    ("values 8-byte aligned, even d", 50, 200, 4, 0, False),
+    ("values 8-byte aligned, odd d", 50, 200, 7, 8, False),
+]
+GATHER_CONFIGS = [dict(tile=32, threads=16, unroll=4, blocks=3),
+                  dict(tile=16, threads=8, unroll=8, blocks=5)]
+
+
+@pytest.mark.parametrize("case", range(len(GATHER)),
+                         ids=[c[0] for c in GATHER])
+@pytest.mark.parametrize("cfg", range(len(GATHER_CONFIGS)))
+def test_gather_rows_model_equals_plain(case, cfg):
+    """Bit-exact against the plain version; every output lane written
+    once; the lanes of each in-range row read once and nothing else; one
+    resolution a row."""
+    _, r, n, d, shift, aligned = GATHER[case]
+    values, idx = _gather_inputs(r, n, d, seed=case)
+    out, writes, reads, resolved = gather_model(
+        values, idx, idx_shift=shift, aligned=aligned, **GATHER_CONFIGS[cfg])
+    np.testing.assert_array_equal(out, _plain_gather(values, idx))
+    assert (writes == 1).all()
+    assert reads == d * int(((idx >= 0) & (idx < r)).sum())
+    assert resolved == n
+
+
+def test_gather_rows_model_walks_several_tiles_a_block_and_pairs_even_d():
+    """At 300 rows in tiles of 32 over 3 blocks each block walks 3-4
+    tiles (every tile but a block's first staged while the one before it
+    was gathered), the last tile holds 12 rows, and an even d reads two
+    lanes a load (the reads come in pairs, as many as one lane a load
+    reads)."""
+    values, idx = _gather_inputs(60, 300, 6, seed=1)
+    out, writes, reads, _ = gather_model(values, idx)
+    assert -(-300 // 32) == 10 and 300 % 32 == 12
+    assert reads % 2 == 0 and (writes == 1).all()
+    assert gather_model(values, idx, aligned=False)[2] == reads
+    np.testing.assert_array_equal(out, _plain_gather(values, idx))
+
+
+def test_gather_rows_model_control_stale_tile_ids_disagree():
+    """The control: tile k gathered from the ids staged for the tile
+    after it disagrees with the plain version."""
+    values, idx = _gather_inputs(60, 300, 3, seed=2)
+    out = gather_model(values, idx, fault="stale")[0]
+    assert not np.array_equal(out, _plain_gather(values, idx))
+
+
+def test_gather_rows_model_control_paired_lanes_at_odd_d_disagree():
+    """The control: two lanes a unit at odd d leaves each row's last lane
+    unwritten."""
+    values, idx = _gather_inputs(60, 300, 5, seed=3)
+    out, writes, _, _ = gather_model(values, idx, fault="pair_odd")
+    assert (writes == 0).any()
+    assert not np.array_equal(out, _plain_gather(values, idx))
