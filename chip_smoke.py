@@ -31,7 +31,13 @@ wrong or if there is no CUDA device. Phases:
                INT64_MIN), rle_expand around its scan and row tiles
                (one run of over 2^20 rows, runs of 1, more scan tiles
                than resident blocks, r = 1, ``out`` off a 16-byte
-               boundary), two launches bit-identical;
+               boundary), delta_unpack around its 4096-row tiles (every
+               width with z 0-15 bytes off a 16-byte boundary, sums that
+               wrap, look-backs over more than one window, ``out`` off a
+               boundary), member_mask on its sorted path (sets of 0 to
+               256 keys, duplicates and padding between, keys off a
+               16-byte boundary) and its staged one (257 to 5,000 keys),
+               two launches bit-identical;
   A quickstart examples/quickstart.py's query with use_kernel=True
                matches the port's interpreter;
   B n2n TPC-H level 2, domain elimination on, at the SF10 order count:
@@ -62,7 +68,8 @@ wrong or if there is no CUDA device. Phases:
                byte bound and one library call where there is one;
                rle_expand also on a constant column (one run of 2^20
                rows), and the device operations of its calls by name
-               with their times (at most two kernels and one memset);
+               with their times (two kernels and one memset), and of
+               delta_unpack's (one kernel and one memset);
   D stored     the SF5 data written by DatasetWriter.write_parts with
                encoding="auto" and 2^20-row chunks (host time with no
                profiler, bytes and codecs per part), reopened on the
@@ -95,7 +102,9 @@ wrong or if there is no CUDA device. Phases:
                and the shuffle kernels at their largest calls
                (pack_rows's r, m, d, slots taken, how many take the row
                after the previous slot's, and its time with the slots
-               sorted by source row); a device profile. The `off` plan
+               sorted by source row; member_mask's n, m, the set's keys
+               that are not padding, and its time with the set
+               shuffled); a device profile. The `off` plan
                (no skew handling) runs at the SF1 order count, with `auto`
                beside it: at SF10 its exchanges would need more than
                the card's 80 GB (the reckoning is in PERF.md, section 6);
@@ -280,7 +289,8 @@ SHUFFLE_KERNELS = ("member_mask", "pack_rows", "unpack_cols",
                    "replicate_scatter")
 # the kernels whose edge cases phase 2 also launches twice
 REPEATED = ("segment_sum_first", "merge_positions", "gather_rows",
-            "rle_expand", "pack_rows", "replicate_scatter")
+            "rle_expand", "delta_unpack", "member_mask", "pack_rows",
+            "replicate_scatter")
 
 
 def log(*a):
@@ -578,9 +588,10 @@ def decode_fns(name: str, args: tuple):
                 lambda: R.rle_expand_ref(values, lengths, n),
                 library, 8 * r + lengths.element_size() * r + 8 * n)
     if name == "delta_unpack":
-        z, first = args
+        z, first = args[:2]
+        out = args[2] if len(args) > 2 else None
         n = z.shape[0]
-        return (lambda: D.delta_unpack_cuda(z, first),
+        return (lambda: D.delta_unpack_cuda(z, first, out=out),
                 lambda: R.delta_unpack_ref(z, first), None,
                 z.element_size() * n + 8 * n)
     if name == "bitunpack":
@@ -711,6 +722,47 @@ def gather_call(args: tuple):
              f"range, {near / max(n - 1, 1):.1%} of rows the previous "
              f"row's id + 0 to 8, {'two lanes' if pair else 'one lane'} "
              f"a load")
+    return shape, kern
+
+
+def member_call(args: tuple):
+    """The shape of a member_mask call: n, m, the set's keys that are not
+    padding, whether the set is sorted, whether the keys start on a
+    16-byte boundary and the share of keys in the set; the same keys
+    against m distinct keys of the call, one in each m-th of its sorted
+    distinct keys, as the set (a search of log2 m steps rounded up,
+    where the planned set may hold fewer keys and take fewer), checked
+    bit-exact and timed; and the call with its set shuffled, checked
+    bit-exact. The kernel sorts its own copy of the set, so the
+    shuffled call does the same work."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import shuffle_pack as S
+    keys = args[0].to(torch.int64).contiguous()
+    heavy = args[1].to(torch.int64).contiguous()
+    n, m = keys.shape[0], heavy.shape[0]
+    real = int((heavy != I64_MAX).sum())
+    ordered = bool((heavy[1:] >= heavy[:-1]).all())
+    hits = int(R.member_mask_ref(keys, heavy).sum())
+    distinct = torch.unique(keys[keys != I64_MAX])
+    full = distinct[torch.linspace(0, distinct.numel() - 1, m).long()
+                    .to(distinct.device)].unique()
+    wide = lambda: S.member_mask_cuda(keys, full)  # noqa: E731
+    err = max_abs_err(wide(), R.member_mask_ref(keys, full))
+    (wide_dev,), _ = device_ms([wide], [20])
+    perm = torch.randperm(m, generator=torch.Generator().manual_seed(0))
+    shuffled = heavy[perm.to(heavy.device)].contiguous()
+    kern = lambda: S.member_mask_cuda(keys, shuffled)  # noqa: E731
+    err = max(err, max_abs_err(kern(), R.member_mask_ref(keys, heavy)))
+    torch.cuda.synchronize()
+    assert err == 0.0, f"member_mask at the call's keys: max |err| {err}"
+    steps = max(full.numel() - 1, 0).bit_length()
+    shape = (f"n={n}, m={m}, {real} keys not padding, the set "
+             f"{'sorted' if ordered else 'unsorted'}, keys "
+             f"{'on' if keys.data_ptr() % 16 == 0 else 'off'} a 16-byte "
+             f"boundary, {hits / max(n, 1):.1%} of keys in the set; with "
+             f"{full.numel()} distinct keys of the call as the set "
+             f"({steps} search steps): bit-exact, {time_ms(wide):.4f} ms "
+             f"({_ms(wide_dev)} on the device)")
     return shape, kern
 
 
@@ -947,13 +999,21 @@ def measure_kernels(captured: dict, launches: dict, tag: str,
                                f"version at {tag}'s shapes (max |err| " \
                                f"{err})"
         del got, want
-        shape = in_order = None
+        # the same call with its inputs reordered: (shape, call, what it
+        # changed, the record's key for its times)
+        shape = other = None
         if name in ("pack_rows", "replicate_scatter"):
-            shape, in_order = pack_call(name, args)
+            shape, other = pack_call(name, args)
+            what, key = "(idx, ok) sorted by source row (the same rows)", \
+                "sorted"
         elif name == "gather_rows":
-            shape, in_order = gather_call(args)
-        (dev, plain_dev, lib_dev, order_dev), dev_s = device_ms(
-            [kern, plain, library, in_order], [20, 20, 20, 20])
+            shape, other = gather_call(args)
+            what, key = "idx sorted (the same rows)", "sorted"
+        elif name == "member_mask":
+            shape, other = member_call(args)
+            what, key = "the set shuffled (the same keys)", "shuffled"
+        (dev, plain_dev, lib_dev, other_dev), dev_s = device_ms(
+            [kern, plain, library, other], [20, 20, 20, 20])
         rec = dict(name=name, route="cuda", source=meta["source"],
                    replaces=meta["replaces"], launches=launches[name],
                    max_abs_err=err, ms=time_ms(kern),
@@ -968,14 +1028,12 @@ def measure_kernels(captured: dict, launches: dict, tag: str,
         if name == "segment_sum_first":
             rec["shape"] = segment_runs(args)
             log(f"  [{tag}] segment_sum_first's call: {rec['shape']}")
-        if in_order is not None:
-            rec.update(shape=shape, sorted_ms=time_ms(in_order),
-                       sorted_device_ms=order_dev)
-            what = "idx sorted" if name == "gather_rows" \
-                else "(idx, ok) sorted by source row"
-            log(f"  [{tag}] {name}'s call: {shape}; with {what} (the same "
-                f"rows): bit-exact, {rec['sorted_ms']:.4f} ms "
-                f"({_ms(order_dev)} on the device)")
+        if other is not None:
+            rec.update({"shape": shape, f"{key}_ms": time_ms(other),
+                        f"{key}_device_ms": other_dev})
+            log(f"  [{tag}] {name}'s call: {shape}; with {what}: "
+                f"bit-exact, {rec[f'{key}_ms']:.4f} ms ({_ms(other_dev)} "
+                f"on the device)")
         log(f"  [{tag}] {name} at {shapes}: "
             f"{'bit-exact' if err == 0 else 'within bound'}; kernel "
             f"{rec['ms']:.4f} ms ({_ms(dev)} on the device, profile session "
@@ -1240,8 +1298,8 @@ def decode_edge_cases(dev, large: bool = True) -> list:
     k = 1, 15 and 16 with n not a multiple of vpw and lo negative or
     near the int64 limits, codes of -1 and r, an empty dictionary.
     ``large`` adds cases with tens of thousands of rows (many blocks, a
-    constant run, a dictionary too big for shared memory) and
-    ``rle_card_cases``."""
+    constant run, a dictionary too big for shared memory),
+    ``rle_card_cases`` and ``delta_card_cases``."""
     from repro_torch.storage import encodings as E
     rng = np.random.RandomState(11)
     T = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
@@ -1305,6 +1363,7 @@ def decode_edge_cases(dev, large: bool = True) -> list:
         dict_(5000, rng.randint(-1, 5001, 70000), torch.int32)  # global
         dict_(49, rng.randint(0, 49, 70000), torch.uint8)
         cases += rle_card_cases(np.random.RandomState(12), dev)
+        cases += delta_card_cases(np.random.RandomState(14), dev)
     return cases
 
 
@@ -1345,6 +1404,92 @@ def rle_card_cases(rng, dev) -> list:
     return cases
 
 
+def bytes_view(a: np.ndarray, skip: int, dev) -> torch.Tensor:
+    """``a`` on ``dev``, viewed ``skip`` bytes (a multiple of its item
+    size) past the 16-byte boundary where a buffer of random bytes
+    starts: the bytes around the view are not zeros."""
+    raw = np.random.RandomState(skip).randint(
+        0, 256, skip + a.nbytes + 16).astype(np.uint8)
+    raw[skip:skip + a.nbytes] = np.ascontiguousarray(a).view(np.uint8)
+    buf = torch.from_numpy(raw).to(dev)
+    dt = torch.from_numpy(a[:0].copy()).dtype
+    return buf[skip:skip + a.nbytes].view(dt)
+
+
+def delta_card_cases(rng, dev) -> list:
+    """delta_unpack around its 4096-row tiles and the 16-byte boundary
+    below z: every stored width with z viewed at each offset from 0 to
+    15 bytes that the width allows, random bytes around the view; sums
+    that wrap past 2^64 and ``first`` at INT64_MIN, INT64_MAX and
+    2^64 - 1; n of 1, a tile less one, a tile, a tile and one, and
+    several tiles; 300,007 rows (74 tiles) and 2^20 + 12,345 rows (260
+    tiles), so that look-backs cross more than one window of 32 tiles
+    (and 128); ``out`` given as a slice 8 bytes off a 16-byte boundary
+    and as an aligned one. A case is (z, first) or (z, first, out)."""
+    i64 = np.iinfo(np.int64)
+    firsts = [0, int(i64.min), int(i64.max), 2 ** 64 - 1, 12345]
+    sizes = [1, 4095, 4096, 4097, 9000, 70001]
+    cases = []
+
+    def delta(dt, n, skip, out_skip=None):
+        top = 2 ** (8 * np.dtype(dt).itemsize)
+        z = rng.randint(0, top, n, dtype=np.uint64).astype(dt)
+        args = (bytes_view(z, skip, dev), firsts[len(cases) % len(firsts)])
+        if out_skip is not None:
+            big = torch.empty((n + out_skip,), dtype=torch.int64, device=dev)
+            args += (big[out_skip:],)
+        cases.append(("delta_unpack", args))
+
+    for dt in (np.uint8, np.uint16, np.uint32, np.uint64):
+        w = np.dtype(dt).itemsize
+        for skip in range(0, 16, w):
+            delta(dt, sizes[(skip // w) % len(sizes)], skip)
+    delta(np.uint32, 300_007, 4)                         # 74 tiles
+    delta(np.uint8, (1 << 20) + 12345, 9)                # 260 tiles
+    delta(np.uint64, 300_007, 8, out_skip=1)             # wraps; out off
+    delta(np.uint16, 70001, 6, out_skip=2)               # out aligned
+    delta(np.uint64, 9000, 0, out_skip=1)
+    return cases
+
+
+def member_card_cases(rng, dev) -> list:
+    """member_mask around its two paths: sets of 0, 1, 2, 40 (sorted,
+    padding at the end, as skew.merge_heavy gives them), 255 and 256
+    keys (the largest a block sorts) with duplicates and padding between,
+    and 257 and 1,000 (the staged path); keys viewed 8 bytes off a
+    16-byte boundary and on one, INT64_MAX among them; n of 1, 7, 8, 9,
+    70,001 and 2^21 + 3 (more keys than one round of the grid)."""
+    cases = []
+
+    def member(n, m, skip, real=None, ordered=False):
+        real = m // 2 if real is None else real
+        pool = np.arange(-200, 200)
+        heavy = np.concatenate([rng.choice(pool, real, replace=True),
+                                np.full(m - real, I64_MAX)]).astype(np.int64)
+        if ordered:
+            heavy.sort()
+        else:
+            rng.shuffle(heavy)
+        keys = rng.randint(-250, 250, n).astype(np.int64)
+        keys[::11] = I64_MAX
+        cases.append(("member_mask", (view_at(keys, torch.int64, skip, dev),
+                                      view_at(heavy, torch.int64, 0, dev))))
+
+    for i, n in enumerate([1, 7, 8, 9, 70001]):
+        member(n, 40, i % 2)
+    member(5000, 0, 1)
+    member(5000, 1, 0, real=1)
+    member(5000, 2, 1, real=1)
+    member(70001, 40, 1, real=35, ordered=True)
+    member(70001, 255, 0, real=250)
+    member(70001, 256, 1, real=256)
+    member(70001, 257, 0)
+    member(9000, 1000, 1)
+    member((1 << 21) + 3, 40, 1, real=40, ordered=True)
+    member((1 << 21) + 3, 40, 0, real=38)
+    return cases
+
+
 def shuffle_edge_cases(dev, large: bool = True) -> list:
     """(kernel name, dispatch arguments) for the packed-shuffle kernels
     over the edges ``tests/test_torch_shuffle.py`` also runs: ok all
@@ -1353,7 +1498,8 @@ def shuffle_edge_cases(dev, large: bool = True) -> list:
     payloads, int32 and int64 indices with bool and int32 flags,
     INT64_MAX on either side of member_mask and an unsorted heavy set.
     ``large`` adds cases with tens of thousands of rows, a heavy set
-    larger than one shared-memory stage, and ``pack_tile_cases``."""
+    larger than one shared-memory stage, ``member_card_cases`` and
+    ``pack_tile_cases``."""
     rng = np.random.RandomState(13)
     T = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
     cases = []
@@ -1387,7 +1533,9 @@ def shuffle_edge_cases(dev, large: bool = True) -> list:
         rng.shuffle(heavy)                   # unsorted, padding between
         cases.append(("member_mask", (T(keys, torch.int64),
                                       T(heavy, torch.int64))))
-    return cases + (pack_tile_cases(rng, dev) if large else [])
+    if large:
+        cases += member_card_cases(rng, dev) + pack_tile_cases(rng, dev)
+    return cases
 
 
 def view_at(a, dt, skip: int, dev) -> torch.Tensor:
@@ -1701,7 +1849,14 @@ def phase_decode(env_np: dict, dev) -> list:
     assert all(counts[k] > 0 for k in DECODE_KERNELS), counts
     log(f"[D0 decode] launches {counts}")
     recs = measure_kernels(cap.args, counts, "D0")
-    rle_call_kernels(*cap.args["rle_expand"], "D0's chunk")
+    from repro_torch.kernels import decode as D
+    values, lengths, rows = cap.args["rle_expand"][:3]
+    call_kernels("rle_expand",
+                 lambda: D.rle_expand_cuda(values, lengths, rows),
+                 {"rle_scan_kernel", "rle_expand_kernel"}, "D0's chunk")
+    z, first = cap.args["delta_unpack"][:2]
+    call_kernels("delta_unpack", lambda: D.delta_unpack_cuda(z, first),
+                 {"delta_scan_kernel"}, "D0's chunk")
     # a constant column, stored as one run of the chunk's rows
     enc, blob = E.encode_chunk(np.full(n, 7, np.int64), "rle")
     with CaptureLargestCalls(("rle_expand",)) as one:
@@ -1710,36 +1865,41 @@ def phase_decode(env_np: dict, dev) -> list:
     for rec in measure_kernels(one.args, counts, "D0 one run"):
         rec["shape"] = f"one run of {n} rows (a constant column)"
         recs.append(rec)
-    rle_call_kernels(*one.args["rle_expand"], "one run")
+    values, lengths, rows = one.args["rle_expand"][:3]
+    call_kernels("rle_expand",
+                 lambda: D.rle_expand_cuda(values, lengths, rows),
+                 {"rle_scan_kernel", "rle_expand_kernel"}, "one run")
     return recs
 
 
-def rle_call_kernels(values, lengths, n, what: str) -> None:
-    """The device operations of an rle_expand call, by name, with each
-    one's mean device time over 10 calls, from a complete profile (up to
-    6 sessions, until both kernels show): at most two kernels and one
-    memset a call."""
-    from repro_torch.kernels import decode as D
-    want, calls = {"rle_scan_kernel", "rle_expand_kernel"}, 10
+def call_kernels(name: str, run, want: set, what: str) -> None:
+    """The device operations of one call of ``name``'s dispatch, by
+    name, with each one's mean device time over 10 calls, from a
+    complete profile (up to 6 sessions, until every kernel of ``want``
+    shows and every operation 10 times, since a session may lose the
+    record of a memset; a kernel's name matches where it contains one of
+    ``want``): the kernels of ``want`` and one memset a call, nothing
+    else."""
+    calls = 10
     for sessions in range(1, 7):
-        records, complete = profiled(
-            lambda: D.rle_expand_cuda(values, lengths, n), iters=calls,
-            pad_s=sessions - 1.0)
+        records, complete = profiled(run, iters=calls, pad_s=sessions - 1.0)
         by: dict = {}
         for e in records:
-            name = e.name.replace("(anonymous namespace)::", "")
-            by.setdefault(name.split("(")[0].strip(), []).append(
+            op = e.name.replace("(anonymous namespace)::", "")
+            by.setdefault(op.split("(")[0].strip(), []).append(
                 e.time_range.elapsed_us())
-        if complete and want <= set(by):
+        kernels = [k for k in by if not k.startswith(("Memset", "Memcpy"))]
+        seen = {w for w in want if any(w in k for k in kernels)}
+        if complete and seen == want and \
+                all(len(t) == calls for t in by.values()):
             break
     ops = {k: f"{len(t) / calls:g} a call, {sum(t) / len(t):.2f} us"
            for k, t in sorted(by.items())}
-    log(f"[D0 decode] rle_expand at {what}: device operations (profile "
+    whole = seen == want and all(len(t) == calls for t in by.values())
+    log(f"[D0 decode] {name} at {what}: device operations (profile "
         f"session {sessions}, "
-        f"{'both kernels seen' if want <= set(by) else 'INCOMPLETE'}): "
-        f"{ops}")
-    kernels = [k for k in by if not k.startswith(("Memset", "Memcpy"))]
-    assert want <= set(by) and len(kernels) <= 2 \
+        f"{'every operation seen' if whole else 'INCOMPLETE'}): {ops}")
+    assert seen == want and len(kernels) == len(want) \
         and len(by) - len(kernels) <= 1 \
         and all(len(t) == calls for t in by.values()), ops
 

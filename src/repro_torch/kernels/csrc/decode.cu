@@ -51,12 +51,52 @@
 // delta_unpack replaces decode.py · delta_unpack_pallas:
 //   out = first + inclusive prefix sum of unzigzag(z), modulo 2^64.
 //   The Pallas kernel carried the running total through a sequential
-//   grid. Blocks run in no order here, so the scan has three passes:
-//   per-tile sums, one block that scans the tile sums from `first`, and
-//   a per-tile block scan that adds its tile's offset. uint64 adds are
-//   associative modulo 2^64, so every order gives the same bits. `z` is
-//   read at its stored width (1, 2, 4 or 8 bytes) and widened in
-//   registers.
+//   grid. Here a call is one memset and one kernel, delta_scan_kernel: a
+//   single-pass scan with decoupled look-back, as rle_scan_kernel's. A
+//   block takes the next tile of DELTA_TILE rows from a ticket counter;
+//   each thread loads its DELTA_ITEMS consecutive rows once, at their
+//   stored width (1, 2, 4 or 8 bytes), in 16-byte words, and widens them
+//   in registers. The tiles are counted from the 16-byte boundary at or
+//   below z (the reader hands z in as a view 8-byte aligned in the
+//   chunk's blob): the `head` rows between the boundary and z, and rows
+//   past the end, count as 0, and a word is read only where it holds a
+//   row before the end, so inside z's 16-byte blocks. Each thread sums
+//   its rows, the block scans the sums, the tile publishes its sum, and
+//   warp 0 looks back over the tiles before it, 32 at a time (a lane
+//   waits for its tile to publish), adding values down to the nearest
+//   tile that has published its inclusive prefix (tile 0 starts from
+//   `first`); then the tile publishes its own. uint64 adds are
+//   associative modulo 2^64, so every order of look-back gives the same
+//   bits. The tile goes out through shared memory (two pad slots after
+//   every 16 keep a thread's writes and the pair reads to at most two
+//   ways of bank conflict) in 16-byte stores: the slots are shifted by
+//   one where that puts the pairs on out's 16-byte boundaries, so only
+//   a tile's first and last row may take an 8-byte store.
+//   The status: a tile's sums are full uint64 values, so no bit is free
+//   for a flag in one word (rle's sums stay below 2^61 and carry theirs
+//   there), and a 16-byte {flag, value} store is not single-copy atomic.
+//   So a status is two words, each a 32-bit state tag (sum or prefix)
+//   above one 32-bit half of the value; each word is stored whole, and a
+//   word is single-copy atomic. A reader loads both and takes the value
+//   only when both tags are set and equal: the halves then come from one
+//   publication (each state writes each word once), so a reader never
+//   takes a value before it is published whole, nor half a sum with
+//   half a prefix. One round trip reads a window: the first form, a flag
+//   word stored with st.release after separate value words and loaded
+//   with ld.acquire before them, took two and timed slower. Tried and
+//   dropped (scripts kept out of the tree): 8-row tiles, windows of 64
+//   to 512 tiles, a back-off in the spin, re-reading only the statuses
+//   not yet published, and statuses spread one to a sector; each was
+//   slower or no faster. The ticket and the statuses are cleared by one
+//   cudaMemsetAsync. The look-back is a copy of rle_scan_kernel's in
+//   shape, not shared with it: the status words differ, and rle_expand
+//   stays as it was timed.
+//   What holds it back at a 2^20-row chunk is latency, not bytes: its
+//   257 tiles run as one wave, so every tile loads, then scans, then
+//   waits for its look-back, then stores, and the stores start only
+//   after the look-back's chain of prefixes; the memset before it is a
+//   device operation of its own. chip_smoke.py prints both operations'
+//   times at D0's chunk.
 // bitunpack replaces decode.py · bitunpack_pallas:
 //   out[i] = ((words[i / vpw] >> ((i % vpw) * k)) & (2^k - 1)) + lo,
 //   one thread per output row (values never straddle a word).
@@ -70,8 +110,7 @@
 // What bounds them on the card: bytes. Each must read its members once
 // at their stored widths and write 8 bytes per output row; the one-byte
 // members of the TPC-H chunks make the int64 output write most of the
-// traffic (delta_unpack also reads z a second time in its third pass,
-// rle_expand its starts once more).
+// traffic (rle_expand reads its starts once more).
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
@@ -89,23 +128,16 @@ constexpr int RLE_ROWS = RLE_THREADS * RLE_ITEMS;  // rows an expand tile
 constexpr int RLE_LOOK = 4;  // tiles a lane reads in a look-back window
 constexpr uint64_t RLE_AGGREGATE = 1, RLE_PREFIX = 2;  // status flags
 
-constexpr int SCAN_THREADS = 256;
-constexpr int SCAN_ITEMS = 8;
-constexpr int SCAN_TILE = SCAN_THREADS * SCAN_ITEMS;
-constexpr int CARRY_THREADS = 1024;
+constexpr int DELTA_THREADS = 256;
+constexpr int DELTA_ITEMS = 16;  // 16 bytes at width 1
+constexpr int DELTA_TILE = DELTA_THREADS * DELTA_ITEMS;  // rows a tile
+// the output stage: slots for local rows 0 .. DELTA_TILE + 1, two pad
+// slots after every 16
+constexpr int DELTA_SLOTS = DELTA_TILE + 2 + DELTA_TILE / 8;
+constexpr unsigned DELTA_AGGREGATE = 1, DELTA_PREFIX = 2;  // flags
 
 constexpr int GATHER_THREADS = 256;
 constexpr int DICT_SMEM_MAX = 4096;  // entries: 32 KB of int64
-
-// a stored member widened to the uint64 that the scan adds: delta's
-// zigzag codes decoded
-struct Unzigzag {
-  template <typename T>
-  __device__ __forceinline__ uint64_t operator()(T z) const {
-    const uint64_t u = (uint64_t)z;
-    return (u >> 1) ^ (0ull - (u & 1ull));
-  }
-};
 
 __device__ __forceinline__ uint64_t warp_inclusive(uint64_t v) {
   const int lane = threadIdx.x & 31;
@@ -136,84 +168,6 @@ __device__ __forceinline__ uint64_t block_inclusive(uint64_t v,
   const uint64_t res = inc + (warp > 0 ? s_warp[warp - 1] : 0ull);
   __syncthreads();  // s_warp may be reused by the caller
   return res;
-}
-
-template <typename T, typename F>
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_tile_sums(const T* __restrict__ z, int64_t n,
-               uint64_t* __restrict__ tile_sums) {
-  __shared__ uint64_t s_warp[SCAN_THREADS / 32];
-  const int64_t base = (int64_t)blockIdx.x * SCAN_TILE;
-  uint64_t s = 0;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int64_t i = base + k * SCAN_THREADS + threadIdx.x;
-    if (i < n) s += F()(z[i]);
-  }
-  s = block_inclusive<SCAN_THREADS>(s, s_warp);
-  if (threadIdx.x == SCAN_THREADS - 1) tile_sums[blockIdx.x] = s;
-}
-
-// one block: tile_sums[t] <- first + sum of tile_sums[0 .. t), in place
-__global__ void __launch_bounds__(CARRY_THREADS)
-scan_tile_offsets(uint64_t* __restrict__ tile_sums, int64_t tiles,
-                  uint64_t first) {
-  __shared__ uint64_t s_warp[CARRY_THREADS / 32];
-  uint64_t carry = first;
-  for (int64_t base = 0; base < tiles; base += CARRY_THREADS) {
-    const int64_t i = base + threadIdx.x;
-    const uint64_t v = i < tiles ? tile_sums[i] : 0ull;
-    const uint64_t inc = block_inclusive<CARRY_THREADS>(v, s_warp);
-    if (i < tiles) tile_sums[i] = carry + inc - v;
-    // the block total, from the last thread, via shared memory
-    if (threadIdx.x == CARRY_THREADS - 1) s_warp[0] = inc;
-    __syncthreads();
-    carry += s_warp[0];
-    __syncthreads();
-  }
-}
-
-// out[i] = tile offset + the tile's sum of F(z) up to row i, inclusive
-// (delta_unpack) or exclusive (set by no caller)
-template <typename T, typename F, bool EXCLUSIVE>
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_tiles(const T* __restrict__ z, int64_t n,
-           const uint64_t* __restrict__ tile_offsets,
-           int64_t* __restrict__ out) {
-  __shared__ uint64_t s_data[SCAN_TILE];
-  __shared__ uint64_t s_warp[SCAN_THREADS / 32];
-  const int64_t base = (int64_t)blockIdx.x * SCAN_TILE;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {  // coalesced load, widened
-    const int idx = k * SCAN_THREADS + threadIdx.x;
-    const int64_t i = base + idx;
-    s_data[idx] = i < n ? F()(z[i]) : 0ull;
-  }
-  __syncthreads();
-  uint64_t run = 0;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k)  // this thread's consecutive rows
-    run += s_data[threadIdx.x * SCAN_ITEMS + k];
-  const uint64_t inc = block_inclusive<SCAN_THREADS>(run, s_warp);
-  uint64_t acc = tile_offsets[blockIdx.x] + (inc - run);
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {  // again, now from the offset
-    const uint64_t v = s_data[threadIdx.x * SCAN_ITEMS + k];
-    if constexpr (EXCLUSIVE) {
-      s_data[threadIdx.x * SCAN_ITEMS + k] = acc;
-      acc += v;
-    } else {
-      acc += v;
-      s_data[threadIdx.x * SCAN_ITEMS + k] = acc;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {  // coalesced store
-    const int idx = k * SCAN_THREADS + threadIdx.x;
-    const int64_t i = base + idx;
-    if (i < n) out[i] = (int64_t)s_data[idx];
-  }
 }
 
 // A status word carries all that it publishes (its flag and its sum), so
@@ -400,6 +354,154 @@ rle_expand_kernel(const int64_t* __restrict__ values,
   }
 }
 
+// A delta tile's status: two words, each a 32-bit state tag above one
+// 32-bit half of the value that the state carries (the low half in the
+// first). Each is stored and loaded whole, relaxed at the card's scope.
+__device__ __forceinline__ void publish(uint64_t* st, unsigned state,
+                                        uint64_t value) {
+  const uint64_t tag = (uint64_t)state << 32;
+  st_status(st, tag | (value & 0xffffffffull));
+  st_status(st + 1, tag | (value >> 32));
+}
+
+// the state that both words of a status carry (0 while they differ), and
+// the value that they carry then
+__device__ __forceinline__ unsigned read_status(const uint64_t* st,
+                                                uint64_t* value) {
+  const uint64_t lo = ld_status(st), hi = ld_status(st + 1);
+  *value = (hi << 32) | (lo & 0xffffffffull);
+  return (lo >> 32) == (hi >> 32) ? (unsigned)(lo >> 32) : 0u;
+}
+
+// delta's zigzag code decoded
+__device__ __forceinline__ uint64_t unzigzag(uint64_t u) {
+  return (u >> 1) ^ (0ull - (u & 1ull));
+}
+
+// the stage slot of local position x (two pad slots after every 16)
+__device__ __forceinline__ int delta_slot(int x) { return x + 2 * (x >> 4); }
+
+// DELTA_ITEMS stored values from virtual row v0, a multiple of
+// DELTA_ITEMS, so that their bytes start on a 16-byte boundary. A 16-byte
+// word is read only where its first row lies before `end`: it then lies
+// in a 16-byte block that holds a byte of z.
+template <typename T>
+__device__ __forceinline__ void load_rows(const T* __restrict__ base,
+                                          int64_t v0, int64_t end,
+                                          T (&e)[DELTA_ITEMS]) {
+  constexpr int PER = 16 / sizeof(T);  // rows a word
+#pragma unroll
+  for (int j = 0; j < DELTA_ITEMS / PER; ++j) {
+    const int64_t v = v0 + j * PER;
+    const uint4 w = v < end ? __ldg(reinterpret_cast<const uint4*>(base + v))
+                            : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      if constexpr (sizeof(T) == 1)
+        e[j * PER + k] = (T)(u[k >> 2] >> (8 * (k & 3)));
+      else if constexpr (sizeof(T) == 2)
+        e[j * PER + k] = (T)(u[k >> 1] >> (16 * (k & 1)));
+      else if constexpr (sizeof(T) == 4)
+        e[j * PER + k] = (T)u[k];
+      else
+        e[j * PER + k] = (T)(u[2 * k] | ((uint64_t)u[2 * k + 1] << 32));
+    }
+  }
+}
+
+// One tile of DELTA_TILE virtual rows a block, in the order of the
+// ticket counter. Virtual row v is z's row v - head; `base` is z - head,
+// on a 16-byte boundary. out[i] = first + the sum of unzigzag(z[0..i]);
+// shift puts the stage's slot pairs on out's 16-byte boundaries.
+template <typename T>
+__global__ void __launch_bounds__(DELTA_THREADS)
+delta_scan_kernel(const T* __restrict__ base, int head, int64_t n,
+                  uint64_t first, unsigned* ticket, uint64_t* status,
+                  int shift, int64_t* __restrict__ out) {
+  constexpr int WARPS = DELTA_THREADS / 32;
+  __shared__ __align__(16) uint64_t s_out[DELTA_SLOTS];
+  __shared__ uint64_t s_warp[WARPS];
+  __shared__ int64_t s_tile;
+  __shared__ uint64_t s_excl;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const int64_t t = s_tile;
+  const int64_t v_tile = t * DELTA_TILE;  // the tile's first virtual row
+  const int64_t end = n + head;           // z's rows: [head, end)
+  const int64_t v0 = v_tile + threadIdx.x * DELTA_ITEMS;
+  T e[DELTA_ITEMS];
+  load_rows(base, v0, end, e);
+  uint64_t d[DELTA_ITEMS];
+  uint64_t run = 0;
+#pragma unroll
+  for (int k = 0; k < DELTA_ITEMS; ++k) {
+    const int64_t v = v0 + k;
+    d[k] = v >= head && v < end ? unzigzag((uint64_t)e[k]) : 0ull;
+    run += d[k];
+  }
+  const uint64_t inc = block_inclusive<DELTA_THREADS>(run, s_warp);
+  const uint64_t total = s_warp[WARPS - 1];
+  if (threadIdx.x < 32) {
+    // warp 0: publish the tile's sum, look back, publish its prefix
+    const int lane = threadIdx.x;
+    uint64_t excl = first;
+    if (t == 0) {
+      if (lane == 0) publish(status, DELTA_PREFIX, first + total);
+    } else {
+      if (lane == 0) publish(status + 2 * t, DELTA_AGGREGATE, total);
+      excl = 0;
+      // windows of 32 tiles back from t - 1: lane l waits for tile
+      // top - l to publish, then the warp adds the values down to the
+      // nearest prefix in the window, that included
+      for (int64_t top = t - 1;; top -= 32) {
+        const int64_t q = top - lane;
+        uint64_t v = 0;  // before tile 0: a prefix of 0
+        unsigned f = DELTA_PREFIX;
+        if (q >= 0)
+          while ((f = read_status(status + 2 * q, &v)) == 0) {
+          }
+        const unsigned pre = __ballot_sync(0xffffffffu, f == DELTA_PREFIX);
+        if (pre != 0 && lane >= __ffs(pre)) v = 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, o);
+        excl += v;
+        if (pre != 0) break;
+      }
+      if (lane == 0) publish(status + 2 * t, DELTA_PREFIX, excl + total);
+    }
+    if (lane == 0) s_excl = excl;
+  }
+  __syncthreads();
+  uint64_t acc = s_excl + (inc - run);
+#pragma unroll
+  for (int k = 0; k < DELTA_ITEMS; ++k) {
+    acc += d[k];
+    s_out[delta_slot(threadIdx.x * DELTA_ITEMS + k + shift)] = acc;
+  }
+  __syncthreads();
+  // local rows [lo, hi) are z's; local row x is out's row v_tile - head + x
+  // and lies in slot position x + shift, so that slot pair p (positions
+  // 2p, 2p + 1) is one 16-byte block of out
+  const int lo = (int)max((int64_t)0, head - v_tile);
+  const int hi = (int)min((int64_t)DELTA_TILE, end - v_tile);
+  const int p1 = (hi + shift + 1) >> 1;
+  for (int p = ((lo + shift) >> 1) + threadIdx.x; p < p1;
+       p += DELTA_THREADS) {
+    const int x = 2 * p - shift;
+    const int64_t g = v_tile - head + x;
+    const longlong2 w =
+        *reinterpret_cast<const longlong2*>(s_out + delta_slot(2 * p));
+    if (x >= lo && x + 1 < hi) {
+      *reinterpret_cast<longlong2*>(out + g) = w;
+    } else {
+      if (x >= lo && x < hi) out[g] = w.x;
+      if (x + 1 >= lo && x + 1 < hi) out[g + 1] = w.y;
+    }
+  }
+}
+
 __global__ void bitunpack_kernel(const uint32_t* __restrict__ words, int k,
                                  int vpw, int64_t n, uint64_t lo,
                                  int64_t* __restrict__ out) {
@@ -441,25 +543,13 @@ int grid_for(int64_t work, int threads, int64_t cap) {
   return (int)b;
 }
 
-// the three passes over n stored values; tiles_buf holds ceil(n / 2048)
-// uint64 of scratch
-template <typename T, typename F, bool EXCLUSIVE>
-void scan_launch(const void* z, int64_t n, uint64_t first, void* tiles_buf,
-                 int64_t* out, cudaStream_t stream) {
-  const int64_t tiles = (n + SCAN_TILE - 1) / SCAN_TILE;
-  uint64_t* sums = (uint64_t*)tiles_buf;
-  scan_tile_sums<T, F><<<(unsigned)tiles, SCAN_THREADS, 0, stream>>>(
-      (const T*)z, n, sums);
-  scan_tile_offsets<<<1, CARRY_THREADS, 0, stream>>>(sums, tiles, first);
-  scan_tiles<T, F, EXCLUSIVE><<<(unsigned)tiles, SCAN_THREADS, 0, stream>>>(
-      (const T*)z, n, sums, out);
-}
-
 template <typename T>
-void delta_launch(const void* z, int64_t n, uint64_t first, void* tiles_buf,
-                  void* out, cudaStream_t stream) {
-  scan_launch<T, Unzigzag, false>(z, n, first, tiles_buf, (int64_t*)out,
-                                  stream);
+void delta_launch(const void* z, int head, int64_t n, uint64_t first,
+                  int64_t tiles, uint64_t* scratch, int shift, void* out,
+                  cudaStream_t stream) {
+  delta_scan_kernel<T><<<(unsigned)tiles, DELTA_THREADS, 0, stream>>>(
+      (const T*)z - head, head, n, first, (unsigned*)scratch, scratch + 2,
+      shift, (int64_t*)out);
 }
 
 template <typename C>
@@ -470,6 +560,12 @@ void dict_launch(const void* values, int64_t r, const void* codes,
   dict_gather_kernel<C><<<grid_for(n, GATHER_THREADS, 132 * 16),
                           GATHER_THREADS, smem, stream>>>(
       (const int64_t*)values, r, (const C*)codes, n, (int64_t*)out, staged);
+}
+
+// tiles of delta_unpack_launch for n rows, `head` rows past the 16-byte
+// boundary at or below z (at most 15)
+int64_t delta_tiles(int64_t n, int head) {
+  return (n + head + DELTA_TILE - 1) / DELTA_TILE;
 }
 
 }  // namespace
@@ -513,20 +609,46 @@ extern "C" int rle_expand_launch(const void* values, const void* lengths,
   return (int)cudaGetLastError();
 }
 
-// width: bytes per stored delta (1, 2, 4 or 8); tiles_buf holds
-// ceil(n / 2048) uint64 of scratch
+// int64 entries of delta_unpack_launch's scratch for n rows: the ticket
+// counter and a pad, then a status of two words a tile (16-byte aligned
+// where the scratch is)
+extern "C" int64_t delta_scratch_len(int64_t n) {
+  return 2 + 2 * delta_tiles(n, 15);
+}
+
+// width: bytes per stored delta (1, 2, 4 or 8), z aligned to it; out
+// 8-byte aligned; scratch: 8-byte aligned, of scratch_len >=
+// delta_scratch_len(n) int64 (cleared here).
+// Returns cudaErrorInvalidValue for arguments it does not take, else
+// cudaGetLastError().
 extern "C" int delta_unpack_launch(const void* z, int width, int64_t n,
-                                   uint64_t first, void* tiles_buf, void* out,
+                                   uint64_t first, void* scratch,
+                                   int64_t scratch_len, void* out,
                                    void* stream) {
-  if (n > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (width) {
-      case 1: delta_launch<uint8_t>(z, n, first, tiles_buf, out, s); break;
-      case 2: delta_launch<uint16_t>(z, n, first, tiles_buf, out, s); break;
-      case 4: delta_launch<uint32_t>(z, n, first, tiles_buf, out, s); break;
-      case 8: delta_launch<uint64_t>(z, n, first, tiles_buf, out, s); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+  if (n <= 0) return (int)cudaGetLastError();
+  if ((width != 1 && width != 2 && width != 4 && width != 8) ||
+      ((uintptr_t)z & (width - 1)) != 0 || ((uintptr_t)out & 7) != 0 ||
+      scratch == nullptr || ((uintptr_t)scratch & 7) != 0 ||
+      scratch_len < delta_scratch_len(n))
+    return (int)cudaErrorInvalidValue;
+  const int head = (int)(((uintptr_t)z & 15) / width);
+  const int64_t tiles = delta_tiles(n, head);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  uint64_t* words = (uint64_t*)scratch;
+  const int shift = (int)((((uintptr_t)out >> 3) - head) & 1);
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = cudaMemsetAsync(
+      words, 0, (size_t)(2 + 2 * tiles) * sizeof(uint64_t), s);
+  if (err != cudaSuccess) return (int)err;
+  switch (width) {
+    case 1: delta_launch<uint8_t>(z, head, n, first, tiles, words, shift,
+                                  out, s); break;
+    case 2: delta_launch<uint16_t>(z, head, n, first, tiles, words, shift,
+                                   out, s); break;
+    case 4: delta_launch<uint32_t>(z, head, n, first, tiles, words, shift,
+                                   out, s); break;
+    default: delta_launch<uint64_t>(z, head, n, first, tiles, words, shift,
+                                    out, s); break;
   }
   return (int)cudaGetLastError();
 }

@@ -48,16 +48,37 @@
 //   lanes), so the tile runs along the rows.
 // member_mask replaces shuffle_pack.py · member_mask_pallas:
 //   out[i] = keys[i] in heavy, where a key equal to INT64_MAX never
-//   matches and a heavy slot holding INT64_MAX never matches. The heavy
-//   set (40 keys on the planned path) is staged in shared memory, in
-//   stages of 2048 keys when it is larger, and every key is compared with
-//   every staged key: no assumption that the set is sorted.
+//   matches and a heavy slot holding INT64_MAX (padding) never matches.
+//   The set need not be sorted and may hold duplicates. A set of at most
+//   MEMBER_SORTED keys (the planned path passes 40) takes
+//   member_sorted_kernel, a persistent grid of MEMBER_PER_SM blocks an
+//   SM:
+//   - each block builds a sorted copy of the set's keys in shared memory
+//     once, padding left out, by a rank sort (one key a thread: its slot
+//     is the number of keys below it plus the number of equal keys
+//     before it, so duplicates fill distinct slots), then fills the
+//     slots up to the power of two P at or above the key count with
+//     INT64_MAX;
+//   - each thread takes MEMBER_ITEMS consecutive keys a round, loaded in
+//     16-byte words counted from the 16-byte boundary at or below keys
+//     (a view need not start on one: with a head of one key, a thread
+//     reads five words and takes the middle eight keys);
+//   - each key is found by a branchless binary search of log2 P steps
+//     (6 for 40 keys), the steps of a thread's keys interleaved, where
+//     the old kernel compared every key with every staged key (40
+//     shared loads a key);
+//   - a thread's flags go out as one 8-byte store (the output is
+//     8-byte aligned), byte by byte only in the last, partial round.
+//   A larger set takes member_staged_kernel: the set is staged in shared
+//   memory MEMBER_STAGE keys at a time and every key is compared with
+//   every staged key, as before.
 //
 // What bounds them on the card: bytes. pack_rows and replicate_scatter
 // must read m indices and m flags and write m*d lanes, and read the d
 // lanes of each row a slot takes; unpack_cols reads and writes m*d
 // lanes; member_mask reads n keys and writes n flags (the heavy set is a
-// few hundred bytes). Each kernel touches each of those bytes once.
+// few hundred bytes, read once a block). Each kernel touches each of
+// those bytes once.
 // The gather itself adds what no design inside the kernel removes: the
 // slots of one destination take rows far apart, so a 32-byte sector that
 // rows bound for two destinations share is fetched twice, and a row that
@@ -224,31 +245,84 @@ __global__ void unpack_cols_kernel(const int64_t* __restrict__ buf,
   }
 }
 
-#define MEMBER_STAGE 2048
+#define MEMBER_THREADS 256
+#define MEMBER_ITEMS 8      // consecutive keys a thread takes a round
+#define MEMBER_SORTED 256   // the largest set a block sorts (a key a thread)
+#define MEMBER_PER_SM 4     // blocks of the persistent grid an SM
+#define MEMBER_STAGE 2048   // keys a stage of member_staged_kernel
 
-__global__ void member_mask_kernel(const int64_t* __restrict__ keys,
-                                   int64_t n,
-                                   const int64_t* __restrict__ heavy,
-                                   int64_t m, uint8_t* __restrict__ out) {
+// out[i] = keys[i] in heavy, for m <= MEMBER_SORTED. Key i lies at
+// base[i + HEAD]: base is keys' 16-byte boundary at or below it.
+template <int HEAD>
+__global__ void __launch_bounds__(MEMBER_THREADS, MEMBER_PER_SM)
+member_sorted_kernel(const int64_t* __restrict__ base, int64_t n,
+                     const int64_t* __restrict__ heavy, int m,
+                     uint8_t* __restrict__ out) {
+  __shared__ int64_t s_set[MEMBER_SORTED];
+  __shared__ int64_t s_sorted[MEMBER_SORTED];
+  const int i = threadIdx.x;
+  const int64_t mine = i < m ? heavy[i] : I64_MAX_;
+  s_set[i] = mine;
+  const int count = __syncthreads_count(mine != I64_MAX_);
+  if (mine != I64_MAX_) {  // rank sort; ties by index
+    int rank = 0;
+    for (int j = 0; j < m; ++j) {
+      const int64_t h = s_set[j];
+      rank += h < mine || (h == mine && j < i);
+    }
+    s_sorted[rank] = mine;
+  }
+  int P = 1;  // slots searched: a power of two, at least one
+  while (P < count) P <<= 1;
+  if (i >= count && i < P) s_sorted[i] = I64_MAX_;
+  __syncthreads();
+  const int64_t chunks = (n + MEMBER_ITEMS - 1) / MEMBER_ITEMS;
+  constexpr int WORDS = MEMBER_ITEMS / 2 + HEAD;  // 16-byte words a round
+  for (int64_t c = (int64_t)blockIdx.x * MEMBER_THREADS + i; c < chunks;
+       c += (int64_t)gridDim.x * MEMBER_THREADS) {
+    const int64_t r0 = c * MEMBER_ITEMS;  // this round's first key
+    longlong2 w[WORDS];
+#pragma unroll
+    for (int j = 0; j < WORDS; ++j)  // a word that holds a key before n
+      w[j] = r0 + 2 * j - HEAD < n
+                 ? __ldg(reinterpret_cast<const longlong2*>(base + r0) + j)
+                 : make_longlong2(0, 0);
+    int64_t key[MEMBER_ITEMS];
+    int at[MEMBER_ITEMS];
+#pragma unroll
+    for (int k = 0; k < MEMBER_ITEMS; ++k) {
+      const longlong2 x = w[(k + HEAD) >> 1];
+      key[k] = (k + HEAD) & 1 ? x.y : x.x;
+      at[k] = 0;
+    }
+    for (int h = P >> 1; h > 0; h >>= 1) {
+#pragma unroll
+      for (int k = 0; k < MEMBER_ITEMS; ++k)
+        at[k] += s_sorted[at[k] + h] <= key[k] ? h : 0;
+    }
+    uint64_t bits = 0;
+#pragma unroll
+    for (int k = 0; k < MEMBER_ITEMS; ++k)
+      bits |= (uint64_t)(key[k] != I64_MAX_ && s_sorted[at[k]] == key[k])
+              << (8 * k);
+    if (r0 + MEMBER_ITEMS <= n) {
+      *reinterpret_cast<uint64_t*>(out + r0) = bits;
+    } else {
+      for (int k = 0; r0 + k < n; ++k)
+        out[r0 + k] = (uint8_t)(bits >> (8 * k));
+    }
+  }
+}
+
+// out[i] = keys[i] in heavy, for any m: every block walks its keys tile
+// by tile, and each tile meets the set stage by stage (the loops are
+// uniform over the block, so every thread reaches every barrier)
+__global__ void member_staged_kernel(const int64_t* __restrict__ keys,
+                                     int64_t n,
+                                     const int64_t* __restrict__ heavy,
+                                     int64_t m, uint8_t* __restrict__ out) {
   __shared__ int64_t sh[MEMBER_STAGE];
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  if (m <= MEMBER_STAGE) {
-    // the whole set in one stage, loaded once per block
-    for (int t = threadIdx.x; t < m; t += blockDim.x) sh[t] = heavy[t];
-    __syncthreads();
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += stride) {
-      const int64_t key = keys[i];
-      bool hit = false;
-      if (key != I64_MAX_)
-        for (int t = 0; t < (int)m; ++t) hit |= (sh[t] == key);
-      out[i] = hit ? 1 : 0;
-    }
-    return;
-  }
-  // a larger set: every block walks its keys tile by tile, and each tile
-  // meets the set stage by stage (the loops are uniform over the block,
-  // so every thread reaches every barrier)
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < n;
        base += stride) {
     const int64_t i = base + threadIdx.x;
@@ -339,12 +413,33 @@ extern "C" int unpack_cols_launch(const void* buf, int64_t m, int d,
   return (int)cudaGetLastError();
 }
 
+// keys 8-byte aligned, out 8-byte aligned. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for pointers it does not take.
 extern "C" int member_mask_launch(const void* keys, int64_t n,
                                   const void* heavy, int64_t m, void* out,
                                   void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const int T = 256;
-  member_mask_kernel<<<blocks_for(n, T), T, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)keys, n, (const int64_t*)heavy, m, (uint8_t*)out);
+  if (((uintptr_t)keys & 7) != 0 || ((uintptr_t)out & 7) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (m > MEMBER_SORTED) {
+    member_staged_kernel<<<blocks_for(n, 256), 256, 0, s>>>(
+        (const int64_t*)keys, n, (const int64_t*)heavy, m, (uint8_t*)out);
+    return (int)cudaGetLastError();
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  constexpr int64_t ROUND = MEMBER_ITEMS * MEMBER_THREADS;  // keys a block
+  const int64_t rounds = (n + ROUND - 1) / ROUND;
+  const int64_t grid = (int64_t)(sms > 0 ? sms : 1) * MEMBER_PER_SM;
+  const int B = (int)(rounds < grid ? rounds : grid);
+  const int64_t* k = (const int64_t*)keys;
+  if (((uintptr_t)keys & 15) == 0)
+    member_sorted_kernel<0><<<B, MEMBER_THREADS, 0, s>>>(
+        k, n, (const int64_t*)heavy, (int)m, (uint8_t*)out);
+  else
+    member_sorted_kernel<1><<<B, MEMBER_THREADS, 0, s>>>(
+        k - 1, n, (const int64_t*)heavy, (int)m, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

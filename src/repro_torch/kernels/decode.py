@@ -30,7 +30,6 @@ BITUNPACK_LAUNCHES = 0
 DICT_LAUNCHES = 0
 _FNS = {}
 
-SCAN_TILE = 2048        # rows per block of delta_unpack's scans (decode.cu)
 U64_MASK = (1 << 64) - 1
 
 # stored member dtypes -> the width code each C entry point takes
@@ -125,12 +124,14 @@ def delta_unpack_cuda(z: torch.Tensor, first: int,
     out = _out("delta_unpack_cuda", out, n, dev)
     if n == 0:
         return out
-    tiles = torch.empty((-(-n // SCAN_TILE),), dtype=torch.int64,
-                        device=dev)
-    fn = _fn("delta_unpack_launch", [_P, _I, _I64, _U64, _P, _P, _P])
+    # the scratch's layout is the C library's
+    n_scratch = _fn("delta_scratch_len", [_I64], _I64)(n)
+    scratch = torch.empty((n_scratch,), dtype=torch.int64, device=dev)
+    fn = _fn("delta_unpack_launch", [_P, _I, _I64, _U64, _P, _I64, _P, _P])
     with torch.cuda.device(dev):
         err = fn(z.data_ptr(), _DELTA_WIDTH[z.dtype], n, _u64(first),
-                 tiles.data_ptr(), out.data_ptr(), build.stream_handle(dev))
+                 scratch.data_ptr(), scratch.shape[0], out.data_ptr(),
+                 build.stream_handle(dev))
     build.check(err, "delta_unpack")
     build.bump(globals(), "DELTA_LAUNCHES")
     return out

@@ -178,13 +178,14 @@ def launched_once_twice_alike(name, args):
     once, bit-exact against the plain version, and a second launch
     bit-identical to the first."""
     _, plain_fn, _, _ = chip_smoke.kernel_fns(name, args)
-    kw = {"out": args[3]} if name == "rle_expand" and len(args) > 3 else {}
+    k = {"rle_expand": 3, "delta_unpack": 2}.get(name, len(args))
+    pos, kw = args[:k], ({"out": args[k]} if len(args) > k else {})
     before = TK.launch_counts()[name]
-    got = to_np(getattr(TK, name)(*args[:3], **kw))
+    got = to_np(getattr(TK, name)(*pos, **kw))
     got = [g.copy() for g in got]               # ``out`` is written again
     assert TK.launch_counts()[name] == before + 1
     assert_bits_equal(got, to_np(plain_fn()))
-    assert_bits_equal(got, to_np(getattr(TK, name)(*args[:3], **kw)))
+    assert_bits_equal(got, to_np(getattr(TK, name)(*pos, **kw)))
 
 
 @pytest.mark.cuda
@@ -206,6 +207,28 @@ def test_rle_expand_tile_edges_bit_exact_repeatable_counted(cuda):
     boundary)."""
     for name, args in chip_smoke.rle_card_cases(np.random.RandomState(12),
                                                 cuda):
+        launched_once_twice_alike(name, args)
+
+
+@pytest.mark.cuda
+def test_delta_unpack_tile_edges_bit_exact_repeatable_counted(cuda):
+    """delta_unpack around its 4096-row tiles (``delta_card_cases``: every
+    width with z 0-15 bytes off a 16-byte boundary, sums that wrap,
+    ``first`` at the int64 extremes, look-backs over more than one
+    window, ``out`` off a 16-byte boundary)."""
+    for name, args in chip_smoke.delta_card_cases(np.random.RandomState(14),
+                                                  cuda):
+        launched_once_twice_alike(name, args)
+
+
+@pytest.mark.cuda
+def test_member_mask_paths_bit_exact_repeatable_counted(cuda):
+    """member_mask on both paths (``member_card_cases``: sets of 0 to 256
+    keys sorted by each block, with duplicates and padding between;
+    257 and 1,000 keys staged; keys 8 bytes off a 16-byte boundary; more
+    keys than one round of the grid)."""
+    for name, args in chip_smoke.member_card_cases(
+            np.random.RandomState(13), cuda):
         launched_once_twice_alike(name, args)
 
 

@@ -1,5 +1,6 @@
-"""A model, on the CPU, of how the Hopper kernel behind ``pack_rows`` and
-``replicate_scatter`` splits its work, held to the plain versions.
+"""A model, on the CPU, of how the Hopper kernels behind ``pack_rows``,
+``replicate_scatter`` and ``member_mask`` split their work, held to the
+plain versions.
 
 A CUDA kernel cannot run here, so ``pack_model`` follows
 ``csrc/shuffle_pack.cu``'s ``pack_rows_kernel`` in Python at a small tile,
@@ -25,8 +26,22 @@ It counts every write of an output lane (exactly one each), every lane
 read (the lanes of the slots that take a row, once each) and every
 division (one a slot). Three controls break a rule on purpose: the next
 tile's indices used for this one, two lanes a unit at odd ``d``, and
-int64 ids divided in 32 bits; each disagrees with the plain version. The
-kernel itself runs on the card in ``test_torch_cuda.py`` and
+int64 ids divided in 32 bits; each disagrees with the plain version.
+
+``member_model`` follows ``member_sorted_kernel`` (``member_mask`` for a
+set of at most ``sort_max`` keys) the same way: each block of a
+persistent grid rank-sorts the set's keys that are not padding into a
+copy (ties broken by index, so that duplicates fill distinct slots;
+the copy's other slots hold garbage until written), pads it with
+INT64_MAX to a power of two P, and each thread takes 8 consecutive keys
+a round, read in 16-byte words from the boundary at or below ``keys``
+(a head of one key: five words), each found by a branchless binary
+search of log2 P steps, the flags stored as one 8-byte store where all
+8 lie before the end. A larger set is compared key by key with every
+key of the set (``member_staged_kernel``). Three controls: equal keys
+that take one rank, a search one step short, and keys taken from the
+wrong head offset; each disagrees with the plain version. The kernels
+themselves run on the card in ``test_torch_cuda.py`` and
 ``chip_smoke.py`` over the same edges.
 """
 
@@ -292,3 +307,157 @@ def test_control_int64_ids_divided_in_32_bits_disagree():
                               vmax=6 * repl + 3)
     out = pack_model(values, idx, ok, repl, fault="div32")[0]
     assert not np.array_equal(out, _plain(values, idx, ok, repl))
+
+
+# ---------------------------------------------------------------------------
+# member_mask
+# ---------------------------------------------------------------------------
+
+I64_MAX = np.iinfo(np.int64).max
+
+
+def member_model(keys, heavy, *, threads=4, blocks=3, sort_max=16,
+                 key_shift=0, seed=0, fault=None):
+    """``member_mask`` as its kernels split it. ``key_shift``: the byte
+    offset of ``keys`` from a 16-byte boundary (0 or 8). Returns (out,
+    counts). ``fault``: "ties" gives equal keys one rank; "short" stops
+    the search a step early; "head" takes the keys at the other head
+    offset."""
+    rng = np.random.RandomState(seed)
+    keys = np.asarray(keys, np.int64)
+    heavy = np.asarray(heavy, np.int64)
+    n, m, items = len(keys), len(heavy), 8
+    head = key_shift // 8
+    mem = rng.randint(-2 ** 62, 2 ** 62, n + 4).astype(np.int64)
+    mem[head:head + n] = keys             # keys among random words
+    out = np.full(n, 0x5A, np.uint8)
+    writes = np.zeros(n, np.int64)
+    counts = dict(writes=writes, stores8=0, steps=0, words=0, sorts=0)
+    if m > sort_max:                      # member_staged_kernel
+        for i, k in enumerate(keys):
+            out[i] = k != I64_MAX and bool(((heavy == k)
+                                            & (heavy != I64_MAX)).any())
+            writes[i] += 1
+        return out.astype(bool), counts
+    chunks = -(-n // items)
+    grid = min(blocks, -(-chunks // threads))
+    use = 1 - head if fault == "head" else head
+    for b in range(grid):
+        s_sorted = rng.randint(-300, 300, sort_max).astype(np.int64)
+        real = [(i, h) for i, h in enumerate(heavy) if h != I64_MAX]
+        for i, h in real:                 # the rank sort
+            rank = sum(1 for j, g in enumerate(heavy) if g < h or
+                       (g == h and j < i and fault != "ties"))
+            s_sorted[rank] = h
+        counts["sorts"] += 1
+        P = 1
+        while P < len(real):
+            P *= 2
+        s_sorted[len(real):P] = I64_MAX
+        for tid in range(threads):
+            for c in range(b * threads + tid, chunks, grid * threads):
+                r0 = c * items
+                words = []
+                for j in range(items // 2 + head):
+                    if r0 + 2 * j - head < n:   # a word with a key
+                        words.append(mem[r0 + 2 * j:r0 + 2 * j + 2])
+                        counts["words"] += 1
+                    else:
+                        words.append(np.zeros(2, np.int64))
+                flags = []
+                for k in range(items):
+                    key = words[min((k + use) // 2, len(words) - 1)][
+                        (k + use) % 2]
+                    at, h = 0, P // 2
+                    if fault == "short":
+                        h //= 2
+                    while h > 0:
+                        at += h if s_sorted[at + h] <= key else 0
+                        h //= 2
+                        counts["steps"] += 1
+                    flags.append(key != I64_MAX and s_sorted[at] == key)
+                here = min(items, n - r0)
+                out[r0:r0 + here] = flags[:here]
+                writes[r0:r0 + here] += 1
+                counts["stores8"] += here == items
+    return out.astype(bool), counts
+
+
+def _member_plain(keys, heavy):
+    return TR.member_mask_ref(torch.from_numpy(np.asarray(keys, np.int64)),
+                              torch.from_numpy(np.asarray(heavy, np.int64))
+                              ).numpy()
+
+
+def _member_inputs(n, m, real, seed):
+    """``real`` keys of the set drawn with replacement from 12 values
+    (duplicates), INT64_MAX padding shuffled between them; keys from a
+    wider range, every seventh INT64_MAX."""
+    rng = np.random.RandomState(seed)
+    heavy = np.concatenate([rng.randint(-6, 6, real),
+                            np.full(m - real, I64_MAX)]).astype(np.int64)
+    rng.shuffle(heavy)
+    keys = rng.randint(-9, 9, n).astype(np.int64)
+    keys[::7] = I64_MAX
+    return keys, heavy
+
+
+# (name, n, m, keys that are not padding)
+MEMBER_CASES = [
+    ("m = 0", 40, 0, 0),
+    ("m = 1", 40, 1, 1),
+    ("m = 1, padding only", 40, 1, 0),
+    ("duplicates, padding between", 100, 12, 9),
+    ("n < 8", 5, 6, 6),
+    ("n = 8", 8, 6, 4),
+    ("n = 9", 9, 6, 4),
+    ("a power of two", 77, 8, 8),
+    ("one over a power of two", 77, 9, 9),
+    ("the largest sorted set", 130, 16, 16),
+    ("more keys than one round of the grid", 300, 16, 11),
+    ("staged: one over the largest sorted set", 60, 17, 10),
+    ("staged", 60, 40, 30),
+]
+MEMBER_CONFIGS = [dict(threads=4, blocks=3), dict(threads=2, blocks=5)]
+
+
+@pytest.mark.parametrize("case", range(len(MEMBER_CASES)),
+                         ids=[c[0] for c in MEMBER_CASES])
+@pytest.mark.parametrize("cfg", range(len(MEMBER_CONFIGS)))
+@pytest.mark.parametrize("key_shift", [0, 8])
+def test_member_model_equals_plain(case, cfg, key_shift):
+    """Bit-exact against the plain version (INT64_MAX never matches);
+    every flag written once, one 8-byte store for each 8 keys before
+    the end; each key searched in log2 P steps; each block sorts the set
+    once."""
+    _, n, m, real = MEMBER_CASES[case]
+    keys, heavy = _member_inputs(n, m, real, seed=case)
+    out, c = member_model(keys, heavy, key_shift=key_shift,
+                          **MEMBER_CONFIGS[cfg])
+    np.testing.assert_array_equal(out, _member_plain(keys, heavy))
+    assert (c["writes"] == 1).all()
+    if m <= 16:
+        steps = max(real - 1, 0).bit_length()
+        assert c["steps"] == -(-n // 8) * 8 * steps
+        assert c["stores8"] == n // 8
+        assert c["words"] == sum(1 for r0 in range(0, n, 8)
+                                 for j in range(4 + key_shift // 8)
+                                 if r0 + 2 * j - key_shift // 8 < n)
+
+
+def test_member_model_set_order_does_not_matter():
+    """The same set sorted, reversed and shuffled: the same flags."""
+    keys, heavy = _member_inputs(200, 14, 11, seed=3)
+    want = _member_plain(keys, heavy)
+    for h in (np.sort(heavy), np.sort(heavy)[::-1], heavy):
+        np.testing.assert_array_equal(member_model(keys, h)[0], want)
+
+
+@pytest.mark.parametrize("fault", ["ties", "short", "head"])
+def test_member_model_controls_disagree(fault):
+    """The controls: equal keys of the set that take one rank, a search
+    one step short, and keys read at the wrong head offset each
+    disagree with the plain version."""
+    keys, heavy = _member_inputs(200, 16, 14, seed=4)
+    out, _ = member_model(keys, heavy, key_shift=8, fault=fault)
+    assert not np.array_equal(out, _member_plain(keys, heavy))

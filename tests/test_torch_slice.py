@@ -239,6 +239,47 @@ def test_float_key_spec_matches_reference(reference_kernels, use_kernel,
     assert not TI.bags_equal(TI.eval_expr(tq, inputs), got)
 
 
+# A gap of the reference, matched: with domain elimination off, the filter
+# inside a correlated sumBy becomes a predicate of the outer plan, applied
+# after the Gamma+, and its column joins the group keys, so one order's
+# parts (2, 2.0) and (2, 3.0) of part 102 (price 3.0) sum in two groups.
+GAP_SPEC = {"shape": "nested_agg", "sel": "qty_ge", "selc": 2}
+GAP_INPUTS = {"Ord": [{"odate": 1, "oparts": [{"pid": 2, "qty": 2.0},
+                                               {"pid": 2, "qty": 3.0}]}],
+              "Part": [{"pid": 2, "pname": 102, "price": 3.0}]}
+GAP_REFERENCE_ROWS = [{"odate": 1, "tops": [{"pname": 102, "total": 6.0},
+                                            {"pname": 102, "total": 9.0}]}]
+GAP_ORACLE_ROWS = [{"odate": 1, "tops": [{"pname": 102, "total": 15.0}]}]
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_filtered_sum_by_without_domain_elimination_matches_reference(
+        reference_kernels, use_kernel):
+    """``build_query``'s nested_agg with ``qty >= 2`` at
+    ``domain_elimination=False``: the plan keys the Gamma+ by
+    ``op__F.qty`` and selects after it. The port's plan text and rows
+    equal the reference's, and both differ from the interpreter's."""
+    reference_kernels("oracle")
+    (rq, rsp, rcp), (tq, tsp, tcp) = compile_both(
+        lambda N: build_query(N, GAP_SPEC), diff_types, diff_catalog,
+        de=False)
+    plan = tcp.pretty()
+    assert plan == rcp.pretty()
+    assert "Select[op__F.qty >= 2.0]" in plan and "'op__F.qty'" in plan
+    renv = RCG.columnar_shred_inputs(GAP_INPUTS, diff_types(RN))
+    tenv = TCG.columnar_shred_inputs(GAP_INPUTS, diff_types(TN),
+                                     device="cpu")
+    rout = RCG.run_flat_program(rcp, renv, RP.ExecSettings(use_kernel))
+    tout = TCG.run_flat_program(tcp, tenv, TP.ExecSettings(use_kernel))
+    outputs_equal(rout, tout, rcp.outputs)
+    got = nested_rows(TCG, tsp, tout, tq)
+    assert TI.bags_equal(got, GAP_REFERENCE_ROWS)
+    assert RI.bags_equal(nested_rows(RCG, rsp, rout, rq), GAP_REFERENCE_ROWS)
+    assert TI.bags_equal(TI.eval_expr(tq, GAP_INPUTS), GAP_ORACLE_ROWS)
+    assert RI.bags_equal(RI.eval_expr(rq, GAP_INPUTS), GAP_ORACLE_ROWS)
+    assert not TI.bags_equal(got, GAP_ORACLE_ROWS)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_float_keys_with_edge_values_match_reference(reference_kernels,
                                                      seed):
