@@ -122,6 +122,26 @@ wrong or if there is no CUDA device. Phases:
                in F). G
                alone runs with expandable allocator segments: its
                cascade peaks near the card's 80 GB.
+  M serving    over D's stored dataset and data and F's data and mesh,
+               with every launch counter zeroed first: B's query with one
+               liftable constant (lineitems of qty >= c), 8 bindings in
+               one QueryService.execute_many, each bit-equal to its own
+               execute, 0 warm plan rebuilds, the batch's time beside 8
+               executes; ServingRuntime.submit_many coalescing them, and
+               a fresh runtime's warm_replay (all-invalid bags on the
+               card) before a request with 0 rebuilds; explain_analyze
+               with and without the kernels (equal trees, bit-equal
+               outputs) in memory, over D's dataset (bytes read and
+               decoded on the scans) and on F's mesh (rows shipped and
+               imbalance equal to F's warm auto metrics); the stats
+               feedback loop (Q-error at most 4 after one round, the
+               measured rows through a copy of D's footer); a
+               ServingRuntime over D's dataset and one over F's mesh
+               with its single-device twin under arm_chaos_schedule:
+               all nine fault classes, no escaped exception, every
+               answer bit-equal to the fault-free one, then warm_replay
+               and a request with 0 rebuilds; the kernels of these
+               paths launched.
   H fig7       the paper's Fig. 7 (repro_torch.figures.tpch_nested's
                points) at the SF1 order count: f2n, n2n and n2f at levels
                1-3, each through the shredded route (jit_program; n2f
@@ -204,6 +224,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1922,13 +1943,16 @@ def dataset_report(w) -> None:
             f"codec {codecs}")
 
 
-def phase_stored(seed: int, dev) -> list:
+def phase_stored(seed: int, dev):
     """Phases D and E: the SF5 data written with ``encoding="auto"``,
     reopened on the card and served by ``QueryService.execute_stored``
     (D) and ``execute_stored_streaming`` (E). Fills the decode records'
-    launch counts from D's warm call; returns the records."""
+    launch counts from D's warm call; returns the records and D's data
+    for phase M (``stored.tmp``, the temporary directory that holds the
+    dataset, is the caller's to remove)."""
     import shutil
     import tempfile
+    from types import SimpleNamespace
     from repro_torch.columnar.table import env_from_numpy
     from repro_torch.core import codegen as CG
     from repro_torch.core import materialization as M
@@ -2047,9 +2071,11 @@ def phase_stored(seed: int, dev) -> list:
         host_profile(load, "D stored load_env")
         profile_run(serve, "D stored")
         phase_streamed(svc, prog, ds, out_d, env_np, man, warm_s, peak_d)
-    finally:
+    except BaseException:
         shutil.rmtree(tmp)
-    return recs
+        raise
+    return recs, SimpleNamespace(tmp=tmp, dir=w.dir, env_np=env_np,
+                                 types=types, catalog=catalog)
 
 
 def phase_streamed(svc, prog, ds, out_d, env_np, man, warm_d: float,
@@ -2210,10 +2236,14 @@ def capture_largest(runner, env: dict, names) -> dict:
     return cap.args
 
 
-def same_outputs_bitwise(a: dict, b: dict, tag: str, what: str) -> None:
-    assert sorted(a) == sorted(b), (sorted(a), sorted(b))
+def outputs_bit_equal(a: dict, b: dict, what: str) -> None:
+    assert sorted(a) == sorted(b), (what, sorted(a), sorted(b))
     for name in a:
-        bags_bit_equal(a[name], b[name], name)
+        bags_bit_equal(a[name], b[name], f"{what}: {name}")
+
+
+def same_outputs_bitwise(a: dict, b: dict, tag: str, what: str) -> None:
+    outputs_bit_equal(a, b, tag)
     log(f"[{tag}] bit-equal to {what} on {sorted(a)}")
 
 
@@ -2251,14 +2281,15 @@ def rebind_heavy(tag: str, cp, runner, env: dict, stats: dict, part: str):
     return out
 
 
-def phase_skew(cols: dict, stats: dict, seed: int, dev) -> list:
+def phase_skew(cols: dict, stats: dict, seed: int, dev):
     """Phase F: n2n TPC-H level 2 over Zipf-2.0 part keys on 8 sites,
     under the ``auto`` (planned SkewJoinP) and ``always`` (sampled heavy
     keys) plans at SF5, then ``off`` beside ``auto`` at SF1. Returns
     the records of segment_sum_first, member_mask, pack_rows and
     unpack_cols at the largest call of each in the warm ``auto`` call
     (segment_sum_first held as in G: bit-exact, or within the f32 bound
-    with its per-segment row counts bit-exact)."""
+    with its per-segment row counts bit-exact), the warm ``auto``
+    call's metrics and the mesh."""
     from repro_torch.columnar.table import env_from_numpy
     from repro_torch.core import codegen as CG
     from repro_torch.core import materialization as M
@@ -2292,6 +2323,8 @@ def phase_skew(cols: dict, stats: dict, seed: int, dev) -> list:
         log(f"[{tag}] {n_skew} SkewJoinP in the plan")
         kw = dict(skew_default=(plan == "always"))
         runner, out, m, counts = run_dist(tag, cp, env, mesh, **kw)
+        if plan == "auto":
+            m_auto = m
         assert all(counts[k] > 0 for k in
                    ("member_mask", "pack_rows", "unpack_cols")), counts
         rows = check_oparts(out[oparts], env_np, want)
@@ -2321,7 +2354,7 @@ def phase_skew(cols: dict, stats: dict, seed: int, dev) -> list:
     del env
     torch.cuda.empty_cache()
     phase_skew_off(seed, dev, sp, catalog, mesh, oparts)
-    return recs
+    return recs, m_auto, mesh
 
 
 def phase_skew_off(seed: int, dev, sp, catalog, mesh, oparts) -> None:
@@ -2468,9 +2501,11 @@ def phase_hypercube(cols: dict, stats: dict, dev) -> list:
     return recs
 
 
-def phase_distributed(seed: int, dev) -> list:
+def phase_distributed(seed: int, dev):
     """Phases F and G over one Zipf-2.0 draw at the SF5 order count,
-    written once for its statistics."""
+    written once for its statistics. Returns the records and F's data,
+    statistics, warm ``auto`` metrics and mesh, for phase M."""
+    from types import SimpleNamespace
     t0 = time.perf_counter()
     cols = gen_tpch_columns(SCALE_F, seed, ZIPF)
     head = cols["li_pid"][:1 << 22]
@@ -2484,11 +2519,500 @@ def phase_distributed(seed: int, dev) -> list:
     env_np.update(flat_tpch(cols))
     stats = written_stats(env_np, skew_types(), "F/G data")
     del env_np
-    recs = phase_skew(cols, stats, seed, dev)
+    recs, m_auto, mesh = phase_skew(cols, stats, seed, dev)
     torch.cuda.empty_cache()
     with expandable_segments():
         recs += phase_hypercube(cols, stats, dev)
-    return recs
+    return recs, SimpleNamespace(cols=cols, stats=stats, metrics=m_auto,
+                                 mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# phase M: EXPLAIN ANALYZE, stats feedback, batched execution and the
+# fault-tolerant ServingRuntime, over D's and F's data
+# ---------------------------------------------------------------------------
+
+M_MIN_QTY = (1.0, 7.0, 13.0, 19.0, 25.0, 31.0, 37.0, 43.0)  # 8 bindings
+M_OPARTS = "Q__D_corders_oparts"
+# the kernels phase M's paths launch: the operators', the shuffle's on F's
+# mesh (member_mask where the skew hints plan a SkewJoinP) and the
+# decoders' on D's chunks (bitunpack only where a chunk is bitpacked)
+M_KERNELS = JOIN_KERNELS + ("member_mask", "pack_rows", "unpack_cols",
+                            "rle_expand", "delta_unpack", "dict_gather")
+
+
+def family_program(min_qty: float):
+    """B's n2n query at level 2 with one liftable constant: only the
+    lineitems of at least ``min_qty`` join Part."""
+    from repro_torch.core import nrc as N
+    part_t, ncop2_t = tpch_types()
+    P = N.Var("Part", part_t)
+    X = N.Var("NCOP2", ncop2_t)
+
+    def agg(ops):
+        inner = N.for_in("op", ops, lambda op:
+            N.for_in("p", P, lambda p:
+                N.IfThen(N.BoolOp("&&", op.pid.eq(p.pid),
+                                  op.qty.ge(N.Const(min_qty, N.REAL))),
+                         N.Singleton(N.record(pname=p.pname,
+                                              total=op.qty * p.price)))))
+        return N.SumBy(inner, keys=("pname",), values=("total",))
+
+    q = N.for_in("x", X, lambda x: N.Singleton(N.record(
+        cname=x.cname,
+        corders=N.for_in("co", x.corders, lambda co: N.Singleton(N.record(
+            odate=co.odate, oparts=agg(co.oparts)))))))
+    return N.Program([N.Assignment("Q", q)])
+
+
+def family_want(env_np: dict, min_qty: float):
+    """The numpy group-by of ``family_program(min_qty)``'s oparts."""
+    li, valid = env_np["NCOP2__D_corders_oparts"]
+    keep = li["qty"] >= min_qty
+    sub = dict(env_np)
+    sub["NCOP2__D_corders_oparts"] = ({c: a[keep] for c, a in li.items()},
+                                      valid[keep])
+    return numpy_oparts_groupby(sub)
+
+
+def fresh_env(env: dict) -> dict:
+    """The bags of ``env`` in a new dict, each a new FlatBag of the same
+    tensors: ``explain_analyze`` writes its outputs into the dict it is
+    given and leaves scan memos on the bags' props, as the reference
+    does."""
+    from repro_torch.columnar.table import FlatBag
+    return {k: FlatBag(b.data, b.valid) for k, b in env.items()}
+
+
+def explain_tree(res) -> list:
+    """An EXPLAIN ANALYZE result's trees as JSON, wall times aside:
+    operators, labels, rows out and in, estimates, signatures, sites
+    and meters."""
+    def strip(node):
+        node = dict(node)
+        node.pop("wall_ms")
+        node["children"] = [strip(c) for c in node["children"]]
+        return node
+    blob = json.loads(json.dumps(res.to_json()))
+    return [(a["name"], strip(a["plan"])) for a in blob["assignments"]]
+
+
+def explain_both(tag: str, run):
+    """``run(use_kernel)`` -> an ExplainResult, with the kernels and
+    without: equal trees and bit-equal outputs (each run shreds from
+    the same fresh-name counter, so both name their columns alike).
+    Returns the kernel run."""
+    from repro_torch.core import nrc as N
+    start = N._counter[0]
+    t0 = time.perf_counter()
+    res = run(True)
+    wall = time.perf_counter() - t0
+    N._counter[0] = start
+    plain = run(False)
+    assert explain_tree(res) == explain_tree(plain), tag
+    outputs_bit_equal(res.outputs, plain.outputs, tag)
+    log(f"[{tag}] explain_analyze(use_kernel=True): {len(res.nodes())} "
+        f"operators in {len(res.roots)} assignments, compile "
+        f"{res.compile_ms:.1f} ms, run {res.total_ms:.1f} ms ({wall:.2f} s "
+        f"in all); operators, rows out and in and meters equal to the "
+        f"use_kernel=False run's, every output bit-equal to it")
+    return res
+
+
+def explain_report(tag: str, res, head: int = 12) -> None:
+    unit = "trace_ms" if res.distributed else "wall_ms"
+    top = sorted(res.nodes(), key=lambda n: -n.wall_ms)[:5]
+    log(f"[{tag}] the five operators with the most {unit} (a subtree's "
+        f"time holds its children's): " + "; ".join(
+            f"#{n.id} {n.op} {n.wall_ms:.1f} ms, rows {n.rows_out}"
+            for n in top))
+    for line in res.pretty().split("\n")[:head]:
+        log(f"[{tag}]   {line[:200]}")
+
+
+def m_execute_many(env_np: dict, types: dict, catalog, dev):
+    """M execute_many: the family's 8 bindings in one ``execute_many``
+    over D's data in memory, each output bit-equal to its own
+    ``execute``; then ``ServingRuntime.submit_many`` coalesces them (one
+    batch through ``execute_many``), and a fresh runtime's
+    ``warm_replay`` builds its all-invalid bags on the card, after which
+    the next request rebuilds no plan. Returns (env, answers)."""
+    import shutil
+    import tempfile
+    from repro_torch.columnar.table import env_from_numpy
+    from repro_torch.core import codegen as CG
+    from repro_torch.core.plans import ExecSettings
+    from repro_torch.serve import QueryRequest, QueryService, ServingRuntime
+    tag = "M execute_many"
+    env = env_from_numpy(env_np, dev)
+    progs = [family_program(q) for q in M_MIN_QTY]
+
+    def service():
+        return QueryService(types, catalog=catalog,
+                            settings=ExecSettings(use_kernel=True))
+
+    svc = service()
+    t0 = time.perf_counter()
+    outs = svc.execute_many(progs, env)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    traces = CG.TRACE_STATS.get("traces", 0)
+    t0 = time.perf_counter()
+    outs = svc.execute_many(progs, env)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    rebuilds = CG.TRACE_STATS.get("traces", 0) - traces
+    t0 = time.perf_counter()
+    singles = [svc.execute(p, env) for p in progs]
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    stats = dict(svc.stats)
+    for q, out, single in zip(M_MIN_QTY, outs, singles):
+        outputs_bit_equal(out, single, f"{tag} min_qty {q}")
+    for q, out in ((M_MIN_QTY[0], outs[0]), (M_MIN_QTY[-1], outs[-1])):
+        rows = check_oparts(out[M_OPARTS], None, family_want(env_np, q))
+        log(f"[{tag}] min_qty {q}: {M_OPARTS} {rows} groups equal to the "
+            f"numpy group-by")
+    log(f"[{tag}] {len(progs)} bindings (qty >= {list(M_MIN_QTY)}): cold "
+        f"{cold_s:.3f} s; warm batch {batch_ms:.1f} ms against "
+        f"{single_ms:.1f} ms for {len(progs)} separate execute calls "
+        f"(information only: the batch runs the warm executable once a "
+        f"binding); plan rebuilds in the warm batch {rebuilds}; stats "
+        f"{stats}; every output bit-equal to its own execute")
+    assert rebuilds == 0 and stats["batch_calls"] == 2, (rebuilds, stats)
+    assert stats["misses"] == 1, stats
+    del singles
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_manifest_")
+    try:
+        man = os.path.join(tmp, "plans.json")
+        rt = ServingRuntime(service(), manifest_path=man, device=dev)
+        rs = rt.submit_many([QueryRequest(p, env) for p in progs])
+        assert all(r.ok for r in rs), [r.error for r in rs]
+        for q, r, out in zip(M_MIN_QTY, rs, outs):
+            outputs_bit_equal(r.outputs, out, f"{tag} submit_many {q}")
+        assert rt.stats["batches"] == 1 and rt.stats["coalesced"] == 8, \
+            dict(rt.stats)
+        del rs
+        svc2 = service()
+        rt2 = ServingRuntime(svc2, manifest_path=man, device=dev)
+        t0 = time.perf_counter()
+        replayed = rt2.warm_replay()
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        traces = CG.TRACE_STATS.get("traces", 0)
+        r = rt2.submit(QueryRequest(progs[3], env))
+        rebuilt = CG.TRACE_STATS.get("traces", 0) - traces
+        assert r.ok and replayed == 1 and rebuilt == 0, \
+            (r.error, replayed, rebuilt)
+        outputs_bit_equal(r.outputs, outs[3], f"{tag} after warm_replay")
+        log(f"[{tag}] ServingRuntime.submit_many of the 8: batches "
+            f"{rt.stats['batches']}, coalesced {rt.stats['coalesced']}, "
+            f"every answer bit-equal to execute_many's; a fresh runtime's "
+            f"warm_replay replayed {replayed} family on all-invalid bags "
+            f"on {dev} in {replay_s:.2f} s, and the next request made "
+            f"{rebuilt} plan rebuilds (an executable keys on each bag's "
+            f"device, dtypes and capacity), its answer bit-equal")
+    finally:
+        shutil.rmtree(tmp)
+    return env, outs
+
+
+def m_explain(stored, dist, env, dev) -> None:
+    """M explain: ``explain_analyze`` with and without the kernels on
+    the family in memory, over D's stored dataset, and on F's mesh
+    (skew ``auto``), where the exchanges' rows shipped and imbalance
+    equal phase F's warm ``auto`` metrics."""
+    from repro_torch.columnar.table import env_from_numpy
+    from repro_torch.core import nrc as N
+    from repro_torch.obs import explain_analyze
+    from repro_torch.storage import StoredDataset
+    prog = family_program(M_MIN_QTY[2])
+    res = explain_both("M explain local", lambda k: explain_analyze(
+        prog, fresh_env(env), stored.types, catalog=stored.catalog,
+        use_kernel=k))
+    explain_report("M explain local", res)
+    del res
+    ds = StoredDataset(stored.dir, device=dev)
+    res = explain_both("M explain stored", lambda k: explain_analyze(
+        prog, ds, stored.types, catalog=stored.catalog, use_kernel=k))
+    meters = {}
+    for n in res.nodes():
+        if not n.children:
+            for k, v in n.meters.items():
+                meters[k] = meters.get(k, 0) + v
+    log(f"[M explain stored] the scans' meters summed: {meters}")
+    assert meters.get("storage.bytes_read", 0) > 0 \
+        and meters.get("storage.bytes_decoded", 0) > 0, meters
+    explain_report("M explain stored", res, head=10)
+    del res
+    part_t, ncop2_t = tpch_types()
+    types = skew_types()
+    fprog = N.Program([N.Assignment("Q", nested_to_nested_query(
+        2, "NCOP2", ncop2_t))])
+    fenv = pad_sites(env_from_numpy(shred_ncop2(dist.cols), dev))
+    res = explain_both("M explain mesh", lambda k: explain_analyze(
+        fprog, fresh_env(fenv), {"NCOP2": ncop2_t, "Part": part_t},
+        catalog=stored.catalog, mesh=dist.mesh, skew_stats=dist.stats,
+        skew_partitions=SITES, use_kernel=k))
+    del fenv
+    m = res.metrics
+    shipped_keys = sorted(k for k in dist.metrics
+                          if k.startswith(("part_rows_", "part_max_")))
+    assert {k: m.get(k) for k in shipped_keys} \
+        == {k: dist.metrics[k] for k in shipped_keys}, (m, dist.metrics)
+    assert m.get("overflow_rows", 0) == 0 \
+        and m.get("compact_dropped_rows", 0) == 0, m
+    shipped = sum(r.meters.get("rows_shipped", 0) for r in res.roots)
+    want_shipped = sum(v for k, v in dist.metrics.items()
+                       if k.startswith("part_rows_"))
+    worst = max(n.meters.get("imbalance", 1.0) for n in res.nodes())
+    want_worst = max([round(dist.metrics[f"part_max_{k[10:]}"] * SITES / v, 2)
+                      for k, v in dist.metrics.items()
+                      if k.startswith("part_rows_") and v] + [1.0])
+    assert shipped == want_shipped and worst == want_worst, \
+        (shipped, want_shipped, worst, want_worst)
+    skew = res.find("SkewJoinP")
+    log(f"[M explain mesh] {len(skew)} SkewJoinP; the exchange nodes "
+        f"shipped {shipped} rows in all, the worst imbalance {worst}, "
+        f"equal to phase F's warm auto metrics (part_rows_*/part_max_* "
+        f"{ {k: dist.metrics[k] for k in shipped_keys} }); no row "
+        f"dropped at cap_factor 2.0 without the adaptive sizing")
+    assert skew, "no SkewJoinP on F's mesh"
+    explain_report("M explain mesh", res, head=10)
+    del res
+    torch.cuda.empty_cache()
+
+
+def m_feedback(stored, env, dev) -> None:
+    """M feedback: a ``QueryService(feedback=StatsFeedback(),
+    cost_mode="auto")`` compiles cold and measures its inputs; the
+    explain result's per-operator rows go back into the estimator, and
+    one round lands the Q-error; the measured rows go into a copy of D's
+    footer, which surfaces them through ``TableStats.meters``."""
+    import shutil
+    from repro_torch.core.plans import ExecSettings
+    from repro_torch.obs import (StatsFeedback, explain_analyze,
+                                 record_observed_stats)
+    from repro_torch.serve import QueryService
+    from repro_torch.storage import StoredDataset, table_stats
+    from repro_torch.storage.format import FOOTER
+    tag = "M feedback"
+    prog = family_program(M_MIN_QTY[2])
+    ds = StoredDataset(stored.dir, device=dev)
+    stats = table_stats(ds)
+    fb = StatsFeedback()
+    svc = QueryService(stored.types, catalog=stored.catalog,
+                       settings=ExecSettings(use_kernel=True), feedback=fb,
+                       cost_mode="auto")
+    t0 = time.perf_counter()
+    svc.execute(prog, env)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    assert fb.rows == {k: ds.parts[k].rows for k in fb.rows}, fb.rows
+    kw = dict(catalog=stored.catalog, skew_stats=stats, cost_mode="auto",
+              hypercube_mode="off", use_kernel=True)
+    r1 = explain_analyze(prog, fresh_env(env), stored.types, **kw)
+    harvested = fb.record_explain(r1)
+    r2 = explain_analyze(prog, fresh_env(env), stored.types,
+                         observed_rows=fb.node_rows, **kw)
+    s1, s2 = r1.qerror_summary(), r2.qerror_summary()
+    outputs_bit_equal(r1.outputs, r2.outputs, tag)
+    svc.evict()
+    svc.execute(prog, env)             # re-compiles from the observed rows
+    est = next(iter(svc._cache.values())).estimates
+    log(f"[{tag}] QueryService(feedback=StatsFeedback(), cost_mode=auto) "
+        f"cold in {cold_s:.3f} s measured {fb.rows}; record_explain "
+        f"harvested {harvested} operators; Q-error before {s1}, after one "
+        f"round {s2}; the re-compile from the observed rows holds "
+        f"{sum(v is not None for v in est.values())} estimates")
+    assert harvested > 0 and s2["qerr_max"] is not None \
+        and s2["qerr_max"] <= 4.0, (harvested, s2)
+    copy = os.path.join(stored.tmp, "footer_copy")
+    os.makedirs(copy)
+    shutil.copy(os.path.join(stored.dir, FOOTER), copy)
+    n = record_observed_stats(copy, fb.part_meters())
+    reopened = StoredDataset(copy, device=dev)
+    meters = {p: reopened.parts[p].stats().meters for p in sorted(fb.rows)}
+    assert n == len(fb.rows) and all(
+        meters[p]["rows"] == fb.rows[p] for p in fb.rows), meters
+    log(f"[{tag}] record_observed_stats into a copy of D's footer: {n} "
+        f"parts; reopened, TableStats.meters {meters}")
+
+
+def chunk_calls_of(run) -> int:
+    """How often ``run`` reaches the ``storage.chunk`` fault site (a
+    rule that never fires makes the registry count calls)."""
+    from repro_torch.faults import FAULTS
+    FAULTS.reset()
+    FAULTS.arm("storage.chunk", "count_only", first=1 << 62)
+    run()
+    n = FAULTS.calls.get("storage.chunk", 0)
+    FAULTS.reset()
+    return n
+
+
+def m_chaos(stored, dist, answers: list, dev) -> None:
+    """M chaos (``benchmarks/serving.py``'s chaos run at SF5): a
+    ``ServingRuntime`` over D's stored dataset and another over F's mesh
+    with its single-device twin, under ``arm_chaos_schedule``: every
+    class fires, no request escapes, every answer is bit-equal to the
+    fault-free one; then a fresh runtime warm-replays the manifest and
+    the next request rebuilds no plan."""
+    import shutil
+    import tempfile
+    from repro_torch.columnar.table import env_from_numpy
+    from repro_torch.core import codegen as CG
+    from repro_torch.core import skew as SK
+    from repro_torch.core.plans import ExecSettings
+    from repro_torch.errors import FooterError
+    from repro_torch.faults import FAULTS
+    from repro_torch.serve import QueryRequest, QueryService, ServingRuntime
+    from repro_torch.serve.faults import arm_chaos_schedule, chaos_coverage
+    from repro_torch.storage import StoredDataset
+    tag = "M chaos"
+    progs = [family_program(q) for q in M_MIN_QTY]
+    types = stored.types
+
+    def service(**kw):
+        return QueryService(types, catalog=stored.catalog,
+                            settings=ExecSettings(use_kernel=True), **kw)
+
+    # fault-free: D's answers are execute_many's (in memory, the same
+    # capacity classes); F's from a clean mesh service and a clean twin
+    clean_ds = StoredDataset(stored.dir, device=dev)
+    clean = service()
+    outputs_bit_equal(clean.execute_stored(progs[0], clean_ds), answers[0],
+                      f"{tag} fault-free stored")
+    n_chunks = chunk_calls_of(lambda: clean.execute_stored(progs[1],
+                                                           clean_ds))
+    del clean
+    heavy = SK.decide_heavy_keys(dist.stats["NCOP2__D_corders_oparts"],
+                                 "pid", SITES)
+    hints = {"NCOP2__D_corders_oparts": {"pid": heavy}}
+    fenv = pad_sites(env_from_numpy(shred_ncop2(dist.cols), dev))
+    mesh_kw = dict(mesh=dist.mesh, skew_partitions=SITES,
+                   dist_kwargs=dict(adaptive=True, cap_factor=2.0))
+    want_f = [service(**mesh_kw).execute(progs[0], fenv, skew_hints=hints)]
+    twin_clean = service()
+    want_f += [twin_clean.execute(p, fenv, skew_hints=hints)
+               for p in progs[1:3]]
+    del twin_clean
+    rows = check_oparts(want_f[0][M_OPARTS], None,
+                        family_want(shred_ncop2(dist.cols), M_MIN_QTY[0]))
+    log(f"[{tag}] fault-free: D's first answer bit-equal to execute_many's; "
+        f"F's on the mesh ({len(heavy)} heavy keys hinted) {rows} groups "
+        f"equal to the numpy group-by; one stored request reaches the "
+        f"storage.chunk site {n_chunks} times")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    try:
+        man = os.path.join(tmp, "plans.json")
+        arm_chaos_schedule(0, chunk_calls=n_chunks)
+        try:
+            StoredDataset(stored.dir, device=dev)
+            raise AssertionError("the injected footer corruption was not hit")
+        except FooterError:
+            pass
+        ds = StoredDataset(stored.dir, device=dev)
+        rt = ServingRuntime(service(), manifest_path=man, seed=0,
+                            verify_reads=True, device=dev)
+        t0 = time.perf_counter()
+        stored_resp = []
+        for q, p, want in zip(M_MIN_QTY, progs, answers):
+            r = rt.submit(QueryRequest(p, ds))
+            assert r.ok, (q, r.error)
+            outputs_bit_equal(r.outputs, want, f"{tag} stored {q}")
+            stored_resp.append((r.retries, r.degraded))
+            r.outputs = None
+        stored_s = time.perf_counter() - t0
+        twin = service()
+        rt_d = ServingRuntime(service(**mesh_kw), local_fallback=twin,
+                              seed=0)
+        t0 = time.perf_counter()
+        dist_resp = []
+        for q, p, want in zip(M_MIN_QTY, progs[:3], want_f):
+            r = rt_d.submit(QueryRequest(p, fenv, skew_hints=hints))
+            assert r.ok, (q, r.error)
+            outputs_bit_equal(r.outputs, want, f"{tag} mesh {q}")
+            dist_resp.append((r.retries, r.degraded))
+            r.outputs = None
+        dist_s = time.perf_counter() - t0
+        coverage = chaos_coverage()
+        fired = dict(FAULTS.stats)
+        FAULTS.reset()
+        log(f"[{tag}] arm_chaos_schedule(0, chunk_calls={n_chunks}): "
+            f"{sum(n > 0 for n in coverage.values())} of "
+            f"{len(coverage)} classes injected "
+            f"{ {f'{s}:{k}': n for (s, k), n in coverage.items()} }; "
+            f"0 escaped exceptions; every answer bit-equal to the "
+            f"fault-free one")
+        log(f"[{tag}] stored runtime, 8 requests in {stored_s:.2f} s "
+            f"((retries, degraded) each: {stored_resp}): stats "
+            f"{dict(rt.stats)}, latency {rt.latency_percentiles()}")
+        log(f"[{tag}] mesh runtime, 3 requests in {dist_s:.2f} s "
+            f"({dist_resp}): stats {dict(rt_d.stats)}, latency "
+            f"{rt_d.latency_percentiles()}; FAULTS.stats {fired}")
+        assert all(n > 0 for n in coverage.values()), coverage
+        assert rt_d.stats["degraded_imbalance"] >= 1, dict(rt_d.stats)
+        del rt_d, twin, fenv, want_f
+        torch.cuda.empty_cache()
+        rt2 = ServingRuntime(service(), manifest_path=man, seed=0,
+                             device=dev)
+        t0 = time.perf_counter()
+        replayed = rt2.warm_replay()
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        traces = CG.TRACE_STATS.get("traces", 0)
+        r = rt2.submit(QueryRequest(progs[5], StoredDataset(stored.dir,
+                                                            device=dev)))
+        rebuilt = CG.TRACE_STATS.get("traces", 0) - traces
+        assert r.ok and replayed >= 1 and rebuilt == 0, \
+            (r.error, replayed, rebuilt)
+        outputs_bit_equal(r.outputs, answers[5], f"{tag} after warm_replay")
+        log(f"[{tag}] restart: warm_replay replayed {replayed} family in "
+            f"{replay_s:.2f} s; the next request made {rebuilt} plan "
+            f"rebuilds, its answer bit-equal; chaos_coverage "
+            f"{ {f'{s}:{k}': n for (s, k), n in coverage.items()} }")
+    finally:
+        FAULTS.reset()
+        shutil.rmtree(tmp)
+
+
+def phase_serving(stored, dist, dev) -> None:
+    """Phase M: batched execution, EXPLAIN ANALYZE, stats feedback and
+    the fault-tolerant runtime over D's and F's SF5 data, with every
+    launch counter zeroed first; the kernels of its paths launched."""
+    import gc
+    from repro_torch.kernels import ops as kops
+    from repro_torch.storage.format import read_footer
+    held = torch.cuda.memory_allocated()
+    kops.reset_launch_counts()
+    env, answers = m_execute_many(stored.env_np, stored.types,
+                                  stored.catalog, dev)
+    m_explain(stored, dist, env, dev)
+    m_feedback(stored, env, dev)
+    del env
+    torch.cuda.empty_cache()
+    m_chaos(stored, dist, answers, dev)
+    counts = kops.launch_counts()
+    packed = any(e.get("codec") == "bitpack" for pm in read_footer(
+        stored.dir).parts.values() for ch in pm.chunks
+        for e in ch.encodings.values())
+    log(f"[M launches] phase M's paths (counters zeroed before them, read "
+        f"after): {counts}; bitunpack {'expected' if packed else 'not expected: no chunk of D is bitpacked'}, "
+        f"replicate_scatter not expected (no family of M plans a "
+        f"HyperCube join)")
+    want = M_KERNELS + (("bitunpack",) if packed else ())
+    assert all(counts[k] > 0 for k in want), counts
+    # the retried requests' tracebacks and the operators' cached sorts
+    # keep device tensors in reference cycles until a collection
+    del answers
+    gc.collect()
+    left = torch.cuda.memory_allocated() - held
+    log(f"[M memory] device memory held after phase M, after a garbage "
+        f"collection: {left / 2 ** 20:.1f} MiB above the "
+        f"{held / 2 ** 30:.2f} GiB held before it")
+    assert left < 1 << 30, left
 
 
 # ---------------------------------------------------------------------------
@@ -3866,10 +4390,16 @@ def main() -> int:
     phase_tpch("C n2n-L2 no-domain-elim", SCALE_C, args.seed, False,
                dev)
     lap("C")
-    recs_d = phase_stored(args.seed, dev)
-    lap("D0-E")
-    recs_fg = phase_distributed(args.seed, dev)
-    lap("F-G")
+    recs_d, stored = phase_stored(args.seed, dev)
+    try:
+        lap("D0-E")
+        recs_fg, dist = phase_distributed(args.seed, dev)
+        lap("F-G")
+        phase_serving(stored, dist, dev)
+        lap("M")
+    finally:
+        shutil.rmtree(stored.tmp)
+    del stored, dist
     phase_fig7(args.seed, dev)
     lap("H")
     phase_fig7_large(gen_tpch_columns(SCALE_H_STD, args.seed), dev,

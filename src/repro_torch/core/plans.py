@@ -410,8 +410,9 @@ def _ecount(name: str) -> None:
 @dataclass
 class ExecSettings:
     """Execution knobs (the reference's fields). ``dist`` is one site's
-    ``exec.dist.DistContext`` on the virtual mesh; ``explain`` must stay
-    None until EXPLAIN ANALYZE is ported (ROADMAP.md queue 1 item 7)."""
+    ``exec.dist.DistContext`` on the virtual mesh; ``explain`` is an
+    ``obs.explain.ExplainRecorder`` that wraps every operator
+    evaluation (EXPLAIN ANALYZE)."""
     use_kernel: bool = False        # CUDA kernels for Gamma+ and joins
     default_expansion: float = 1.0
     # distributed context (None => local, single partition)
@@ -485,8 +486,11 @@ def eval_plan(p: Plan, env: Dict[str, FlatBag],
               s: Optional[ExecSettings] = None) -> FlatBag:
     s = s or ExecSettings()
     if s.explain is not None:
-        raise NotImplementedError(
-            "eval_plan: EXPLAIN ANALYZE is ROADMAP.md queue 1 item 7")
+        # EXPLAIN ANALYZE: the recorder wraps every operator evaluation
+        # (timing + metric deltas + row counts) and calls back into
+        # _eval_plan_node; recursive child evaluations re-enter here,
+        # so the whole subtree is recorded
+        return s.explain.record(p, env, s, _eval_plan_node)
     return _eval_plan_node(p, env, s)
 
 

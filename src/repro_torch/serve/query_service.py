@@ -38,21 +38,30 @@ heavy-key sets ride as runtime parameters: the cache key carries only
 the hint *shape*, so a warm call with a DIFFERENT heavy-key set rebinds
 with zero retraces, exactly like ``N.Param`` constants.
 
+``execute_many`` serves concurrent invocations of one family: it
+resolves the family once (one cache lookup, one ``batch_calls``) and
+runs the warm executable once per parameter binding. The reference
+stacks the bindings and runs them under ``jax.vmap``; the port's
+executable launches ctypes-bound kernels and reads sizes on the host,
+which ``torch.func.vmap`` cannot map through.
+
 Stored datasets (``storage.StoredDataset``) serve through
 ``execute_stored`` — one warm plan, zone maps re-selecting chunks per
 parameter binding — and ``execute_stored_streaming``, which runs the
 same executable once per morsel window and re-folds the partial
 outputs (``plans.morsel_fold``).
 
-What waits for a later slice, and raises ``NotImplementedError`` naming
-its ROADMAP.md item: ``execute_many`` and ``feedback`` (queue 1
-item 7).
+With a ``feedback`` accumulator (``obs.StatsFeedback``), cold compiles
+measure the input bags' valid rows into it and overlay earlier
+measurements onto the planner statistics, per-operator rows harvested
+from EXPLAIN ANALYZE pin the cost estimator's estimates, and every
+distributed execute folds its receive-load imbalance in.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from dataclasses import dataclass, field as dc_field
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.columnar.table import FlatBag
@@ -95,7 +104,6 @@ class CacheEntry:
     param_names: tuple
     class_caps: Dict[str, int]
     hits: int = 0
-    batch_fns: Dict[int, object] = dc_field(default_factory=dict)
     # storage-backed entries: per-part column/skip-predicate
     # requirements derived from the compiled plans (storage.catalog)
     storage_req: Optional[dict] = None
@@ -114,20 +122,15 @@ class CacheEntry:
         return self.cp.estimates
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"QueryService: {what} is ROADMAP.md queue 1 {item}")
-
-
 class QueryService:
     """Compile-once / serve-many front end. See module docstring.
 
     ``mesh=None`` serves through the local single-executable path
     (parameter bindings supported, capacity classes rounded to powers of
     two); with a mesh (``exec.dist.device_mesh_1d``), programs compile
-    through the distributed scheduler, on the mesh's sites. The
-    reference's feedback loop (``feedback``) is not ported yet and
-    raises."""
+    through the distributed scheduler, on the mesh's sites.
+    ``feedback`` is an optional ``obs.StatsFeedback`` (see the module
+    docstring)."""
 
     def __init__(self, input_types: Dict[str, N.BagT],
                  catalog: Optional[Catalog] = None,
@@ -144,8 +147,6 @@ class QueryService:
         assert skew_mode in ("auto", "off"), skew_mode
         assert hypercube_mode in ("auto", "off"), hypercube_mode
         assert cost_mode in ("auto", "off"), cost_mode
-        if feedback is not None:
-            raise _unported("the stats feedback loop (feedback)", "item 7")
         self.input_types = dict(input_types)
         self.catalog = catalog or Catalog()
         self.settings = settings or ExecSettings()
@@ -165,8 +166,14 @@ class QueryService:
         self._cache: "OrderedDict[tuple, CacheEntry]" = OrderedDict()
         self.stats = {"hits": 0, "misses": 0, "evictions": 0,
                       "batch_calls": 0}
-        # shuffle/overflow metrics of the most recent dist execute
+        # shuffle/overflow metrics of the most recent dist execute —
+        # the serving runtime reads receive-load imbalance off these
         self.last_metrics: Optional[dict] = None
+        # optional obs.StatsFeedback: cold compiles measure input rows
+        # into it, dist executes fold receive-load imbalance, and the
+        # planner stats passed to the skew/hypercube passes get the
+        # measured rows overlaid (TableStats.effective_rows)
+        self.feedback = feedback
 
     # -- ingestion helper --------------------------------------------------
     def shred_inputs(self, inputs: Dict[str, list],
@@ -321,14 +328,28 @@ class QueryService:
                                 skew_partitions=self.skew_partitions,
                                 skew_threshold=self.skew_threshold,
                                 hypercube_mode=self.hypercube_mode,
-                                cost_mode=self.cost_mode)
+                                cost_mode=self.cost_mode,
+                                observed_rows=self._observed_rows())
         return sp, cp
+
+    def _observed_rows(self) -> Optional[dict]:
+        """Per-operator measured row counts from the feedback
+        accumulator (``obs.StatsFeedback.node_rows``), for the cost
+        estimator's ground-truth override on recompiles."""
+        rows = getattr(self.feedback, "node_rows", None)
+        return dict(rows) if rows else None
 
     def _compile(self, key: tuple, lifted: N.Program,
                  env_c: Dict[str, FlatBag],
                  class_caps: Dict[str, int],
                  n_params: int = 0,
                  skew_stats: Optional[dict] = None) -> CacheEntry:
+        if self.feedback is not None:
+            # once per family (the cold path): ground-truth input rows
+            # into the feedback accumulator, then overlay any prior
+            # measurements onto the planner stats for this compile
+            self.feedback.record_env(env_c)
+            skew_stats = self.feedback.apply(skew_stats)
         with _span("query.compile",
                    path="dist" if self.mesh is not None else "local",
                    assignments=len(lifted.assignments)):
@@ -387,6 +408,9 @@ class QueryService:
             bound = {k: v for k, v in params.items() if k in rp}
             out, metrics = entry.runner(env_c, params=bound)
             self.last_metrics = metrics
+            if self.feedback is not None:
+                self.feedback.record_metrics(
+                    str(entry.key[0]), metrics, self.skew_partitions)
             # a rebind that SHRINKS the warm heavy-key set can push a
             # hot key back through an exchange bucket the adaptive
             # warmup sized without it; the raw runner meters that as
@@ -409,10 +433,36 @@ class QueryService:
 
     def execute_many(self, programs: Sequence[N.Program],
                      env: Dict[str, FlatBag]) -> List[Dict[str, FlatBag]]:
-        """Batched invocations of one query family (the reference runs
-        them under ``jax.vmap``). Not ported yet."""
-        raise _unported("execute_many (batching over parameters)",
-                        "item 7")
+        """Batch concurrent invocations of ONE query family: all
+        programs must fingerprint identically (same structure, differing
+        only in lifted constant values). The family resolves once (one
+        cache lookup); the warm executable then runs once per binding
+        over the shared environment, and each program's outputs equal
+        its own ``execute``'s."""
+        assert programs, "empty batch"
+        assert self.mesh is None, (
+            "execute_many is a local-path feature (batching over params)")
+        self.stats["batch_calls"] += 1
+        with _span("query.execute_many", batch=len(programs)):
+            return self._execute_many(programs, env)
+
+    def _execute_many(self, programs: Sequence[N.Program],
+                      env: Dict[str, FlatBag]
+                      ) -> List[Dict[str, FlatBag]]:
+        entry, params0, env_c = self._lookup(programs[0], env)
+        binds = [entry.exe.bind(params0)]
+        for prog in programs[1:]:
+            key, _, values, _ = self.fingerprint(prog, env)
+            assert key == entry.key, (
+                "execute_many: programs are not one parameterized "
+                "family (structure/schema/capacity-class mismatch)")
+            binds.append(entry.exe.bind(
+                {f"__p{i}": v for i, v in enumerate(values)}))
+        if not binds[0]:
+            # no parameters anywhere: identical invocations
+            out = entry.exe(env_c)
+            return [out for _ in binds]
+        return [entry.exe(env_c, b) for b in binds]
 
     # -- storage-backed execution ------------------------------------------
     def fingerprint_stored(self, program: N.Program, dataset,
@@ -444,6 +494,8 @@ class QueryService:
             for col, ks in cols.items():
                 ts.heavy[col] = [(int(k), max(rows, 1)) for k in list(ks)]
             stats[bag] = ts
+        if self.feedback is not None:
+            stats = self.feedback.apply(stats)
         return stats
 
     def _lookup_stored(self, program: N.Program, dataset,

@@ -179,7 +179,7 @@ class PartMeta:
     # reads (optional: absent on datasets written before the field)
     sketches: Dict[str, dict] = dc_field(default_factory=dict)
     # observed runtime meters fed back by the telemetry layer
-    # (obs.feedback, ROADMAP.md queue 1 item 7): measured rows /
+    # (obs.feedback.record_observed_stats): measured rows /
     # receive imbalance from actual executions, surfaced to planners
     # through TableStats.meters (optional: absent until serving has
     # recorded an execution)

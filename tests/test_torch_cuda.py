@@ -980,3 +980,105 @@ def _as_numpy(tree):
     if torch.is_tensor(tree):
         return tree.numpy()
     return {k: _as_numpy(v) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# serving and observability on the card: EXPLAIN ANALYZE, execute_many,
+# the runtime's warm replay
+# ---------------------------------------------------------------------------
+
+def _family_env(dev, seed=3, skew=0.0):
+    from repro_torch.columnar.table import env_from_numpy
+    from repro_torch.core.unnesting import Catalog
+    part_t, ncop2_t = chip_smoke.tpch_types()
+    env_np = chip_smoke.shred_ncop2(chip_smoke.gen_tpch_columns(4000, seed,
+                                                                skew))
+    return (env_np, env_from_numpy(env_np, dev),
+            {"NCOP2": ncop2_t, "Part": part_t},
+            Catalog(unique_keys={"Part__F": ("pid",)}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["local", "mesh"])
+def test_explain_with_and_without_kernels_gives_equal_trees(cuda, where):
+    """explain_analyze with use_kernel=True and False on the card: the
+    same operators, rows out and in, and meters (wall times aside), and
+    bit-equal outputs; the kernels launched in the first run."""
+    from repro_torch.exec.dist import device_mesh_1d
+    from repro_torch.obs import explain_analyze
+    env_np, env, types, catalog = _family_env(cuda, skew=2.0)
+    kw = {}
+    if where == "mesh":
+        env = chip_smoke.pad_sites(env)
+        kw = dict(mesh=device_mesh_1d(8, device=cuda), skew_partitions=8,
+                  skew_stats=chip_smoke.written_stats(env_np, types, "stats"))
+    prog = chip_smoke.family_program(13.0)
+    TK.reset_launch_counts()
+    res = chip_smoke.explain_both(f"explain {where}", lambda k:
+        explain_analyze(prog, chip_smoke.fresh_env(env), types,
+                        catalog=catalog, use_kernel=k, **kw))
+    counts = TK.launch_counts()
+    if where == "local":
+        assert all(counts[k] > 0 for k in KERNELS), counts
+    else:     # the sites' local joins take no kernel, as in the reference
+        assert all(counts[k] > 0 for k in ("segment_sum_first", "pack_rows",
+                                           "unpack_cols")), counts
+        assert res.distributed and res.find("SkewJoinP")
+    assert all(n.rows_out is not None for n in res.nodes())
+
+
+@pytest.mark.cuda
+def test_execute_many_bit_equal_to_execute_on_card(cuda):
+    from repro_torch.core import codegen as CG
+    from repro_torch.core.plans import ExecSettings
+    from repro_torch.serve import QueryService
+    env_np, env, types, catalog = _family_env(cuda)
+    svc = QueryService(types, catalog=catalog,
+                       settings=ExecSettings(use_kernel=True))
+    progs = [chip_smoke.family_program(q) for q in chip_smoke.M_MIN_QTY]
+    svc.execute_many(progs, env)
+    TK.reset_launch_counts()
+    traces = CG.TRACE_STATS.get("traces", 0)
+    outs = svc.execute_many(progs, env)
+    assert CG.TRACE_STATS.get("traces", 0) == traces
+    assert all(TK.launch_counts()[k] >= len(progs) for k in KERNELS)
+    for q, out in zip(chip_smoke.M_MIN_QTY, outs):
+        chip_smoke.outputs_bit_equal(out, svc.execute(
+            chip_smoke.family_program(q), env), str(q))
+    chip_smoke.check_oparts(outs[2][chip_smoke.M_OPARTS], None,
+                            chip_smoke.family_want(env_np,
+                                                   chip_smoke.M_MIN_QTY[2]))
+    assert svc.stats["batch_calls"] == 2 and svc.stats["misses"] == 1
+
+
+@pytest.mark.cuda
+def test_warm_replay_builds_its_bags_on_the_card(cuda, tmp_path):
+    """A fresh runtime on the GPU (no device given) replays the manifest
+    on all-invalid bags on the card, of the recorded dtypes, and the
+    next request rebuilds no plan."""
+    from repro_torch.core import codegen as CG
+    from repro_torch.core.plans import ExecSettings
+    from repro_torch.serve import QueryRequest, QueryService, ServingRuntime
+    from repro_torch.serve import runtime as RT
+    _, env, types, catalog = _family_env(cuda)
+    man = str(tmp_path / "plans.json")
+
+    def service():
+        return QueryService(types, catalog=catalog,
+                            settings=ExecSettings(use_kernel=True))
+
+    prog = chip_smoke.family_program(7.0)
+    rt = ServingRuntime(service(), manifest_path=man)
+    first = rt.submit(QueryRequest(prog, env))
+    assert first.ok, first.error
+    entry = next(iter(rt.manifest.entries.values()))
+    synth = RT._synthetic_env(entry["schema"])
+    for name, bag in synth.items():
+        assert bag.valid.is_cuda and not bool(bag.valid.any())
+        assert {c: a.dtype for c, a in bag.data.items()} == \
+            {c: a.dtype for c, a in env[name].data.items()}
+    rt2 = ServingRuntime(service(), manifest_path=man)
+    assert rt2.warm_replay() == 1
+    traces = CG.TRACE_STATS.get("traces", 0)
+    r = rt2.submit(QueryRequest(chip_smoke.family_program(19.0), env))
+    assert r.ok and CG.TRACE_STATS.get("traces", 0) == traces

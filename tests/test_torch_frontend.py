@@ -53,6 +53,8 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.configs, repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.rwkv6_scan\n"
         "import repro_torch.configs.gemma2_27b, repro_torch.configs.rwkv6_7b\n"
+        "import repro_torch.obs.explain, repro_torch.obs.feedback\n"
+        "import repro_torch.serve.runtime, repro_torch.serve.faults\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -135,13 +137,17 @@ def test_differential_texts_match_reference(shape):
 
 
 def test_unported_passes_raise_naming_the_roadmap():
-    """What is still to port raises naming its ROADMAP.md item; the
-    statistics-driven planning (item 4) and distributed execution
-    (item 5) are ported and no longer refuse."""
+    """The passes that once waited for a later slice now run: the
+    statistics-driven planning (item 4), distributed execution (item 5),
+    and batched execution, the stats feedback loop and EXPLAIN ANALYZE
+    (item 7)."""
     from repro_torch.core.plans import ExecSettings, ScanP, eval_plan
     from repro_torch.core.skew import TableStats
     from repro_torch.exec.dist import device_mesh_1d
+    from repro_torch.obs import StatsFeedback
+    from repro_torch.obs.explain import ExplainRecorder
     from repro_torch.serve import QueryService
+    from test_torch_queries import QS_COP, QS_PARTS
     fresh_start(TN)
     q, types = quickstart(TN)
     sp = TM.shred_program(TN.Program([TN.Assignment("Q", q)]), types,
@@ -150,10 +156,15 @@ def test_unported_passes_raise_naming_the_roadmap():
     TCG.compile_program(sp, cost_mode="auto")
     QueryService(types, skew_partitions=8,
                  mesh=device_mesh_1d(8, device="cpu"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        QueryService(types).execute_many(
-            [TN.Program([TN.Assignment("Q", q)])], {})
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        QueryService(types, feedback=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        eval_plan(ScanP("COP__F", "c"), {}, ExecSettings(explain=object()))
+    env = TCG.columnar_shred_inputs({"COP": QS_COP, "Part": QS_PARTS},
+                                    types, device="cpu")
+    prog = TN.Program([TN.Assignment("Q", q)])
+    outs = QueryService(types).execute_many([prog, prog], env)
+    assert len(outs) == 2 and "Q" in outs[0]
+    fb = StatsFeedback()
+    QueryService(types, feedback=fb).execute(prog, env)
+    assert fb.observed_rows("COP__F") == 2
+    rec = ExplainRecorder()
+    bag = eval_plan(ScanP("COP__F", "c"), env, ExecSettings(explain=rec))
+    assert [n.op for n in rec.roots] == ["ScanP"]
+    assert rec.roots[0].rows_out == int(bag.valid.sum()) == 2
