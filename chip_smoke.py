@@ -14,7 +14,9 @@ wrong or if there is no CUDA device. Phases:
                the card, bit for bit, over the edge cases (segment_reduce's
                with its 2048-row tiles' edges, d = 1 to 5);
                flash_attention (both its tensor-core and its CUDA-core
-               path, with the tensor-core kernel's tile edges) and rwkv6
+               path, with the tensor-core kernel's tile edges and
+               Whisper's non-causal calls: 1500 x 1500, 448 and 1 rows
+               over 1500 keys, D = 64) and rwkv6
                (its one path, the tensor cores, with T around multiples
                of its 16-step sub-chunk and of the chunk) within a
                first-order f32 rounding bound (+1 bf16 ulp in bf16), two
@@ -206,6 +208,34 @@ wrong or if there is no CUDA device. Phases:
                products and by the SFU's exponentials), with
                scaled_dot_product_attention without the softcap timed
                as a yardstick.
+  N whisper    Whisper base, the same at full depth (6 encoder and 6
+               decoder layers) over B = 8 x 1500 seeded N(0, 1) encoder
+               frames and a 448-token decoder prompt: flash_attention 18
+               launches (6 non-causal encoder calls, 6 causal, 6
+               cross-attention calls of 448 rows over 1500 keys), a
+               record at each kind of call (SDPA, the same function
+               there, as yardstick), the control "causal forced on in
+               the calls made with causal=False" beyond the bound;
+               serving: ServeEngine (the decoder without
+               cross-attention, as the reference's engine serves it),
+               then 16 decode steps of batch 4 with the encoder's output
+               (6 cross-attention launches a step); float32 at 2 + 2
+               layers, that decode loop's tokens equal to repeated
+               prefill over the frames;
+  O mixtral    Mixtral 8x22B at full width, 12 of its 56 layers, 1 x
+               8192 tokens (the 4096 window masks): 12 launches, MoE
+               layer 0's dropped_frac and heavy_mass; float32 at 2
+               layers;
+  P arctic     Snowflake Arctic at full width (128 experts and the dense
+               residual), 2 of 35 layers, 2 x 4096 tokens (group-local
+               dispatch, C = 80 per expert and sequence): 2 launches,
+               layer 0's metrics; float32 at 1 layer;
+  Q jamba      Jamba v0.1 at full width, 16 of 32 layers (two periods of
+               7 Mamba and 1 attention layer, MoE every other layer), 2 x
+               512 tokens: 2 launches, the Mamba scans' share of a warm
+               call (host timing); float32 at 8 layers. The float32
+               serving checks of O-Q run at capacity_factor E / K, where
+               no prefill drops a token (a decode step never does).
 
 The last three lines: nvidia-smi's name and power limit, the per-kernel
 JSON records (phase B's join kernels, gather_rows at each width; D0's
@@ -213,9 +243,11 @@ decode kernels with D's launch counts, bitunpack's from D0 since no
 column of this data picks bitpack, rle_expand also at one run; F's
 segment_sum_first, member_mask, pack_rows and unpack_cols;
 G's replicate_scatter; J's segment_reduce at (a) and at (b) with d = 4;
-K's rwkv6; L's flash_attention at a local and a global layer; each with
-the library call's device time where there is one, and with its path
-where it has one), and ``{"ok": true, "device": ...}``.
+K's rwkv6; L's flash_attention at a local and a global layer; N's at
+an encoder, a decoder and a cross-attention layer, O's at a local
+layer, P's and Q's at a global layer; each with the library call's
+device time where there is one, and with its path where it has one),
+and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -3702,13 +3734,33 @@ def attention_tile_shapes() -> list:
     return shapes
 
 
+WHISPER_ATTN = [(1500, 1500), (448, 1500), (1, 1500)]   # (Sq, Sk)
+
+
+def whisper_attention_cases(dev) -> list:
+    """(q, k, v, kwargs) at Whisper's non-causal calls, 8 heads of D =
+    64 over B = 2: the encoder's self-attention (Sq = Sk = 1500 frames,
+    not a multiple of the 64-key tile), the decoder's cross-attention in
+    prefill (448 rows over the 1500 frames) and in a decode step (1
+    row), in bf16 (tensor cores) and f32 (CUDA cores)."""
+    rng = np.random.RandomState(13)
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        for Sq, Sk in WHISPER_ATTN:
+            q, k, v = (torch.as_tensor(rng.randn(2, 8, s, 64), dtype=dt,
+                                       device=dev) for s in (Sq, Sk, Sk))
+            cases.append((q, k, v, dict(causal=False)))
+    return cases
+
+
 def attention_edge_cases(dev, large: bool = True) -> list:
     """(q, k, v, kwargs) for ``flash_attention``: the five variants of
     ``tests/test_kernels.py`` at its two shapes, f32 and bf16; with
     ``large``, each variant with GQA (8 query heads over 2 KV heads) at
     Sq = Sk = 97 for D in {64, 128, 256}, and Sq != Sk, window 1, one
-    KV head and multi-tile windows with a softcap; and the tile edges of
-    ``attention_tile_shapes`` under ``ATTN_TILE_VARIANTS``."""
+    KV head and multi-tile windows with a softcap; the tile edges of
+    ``attention_tile_shapes`` under ``ATTN_TILE_VARIANTS``; and
+    Whisper's non-causal calls (``whisper_attention_cases``)."""
     rng = np.random.RandomState(11)
     shapes = [(1, 2, 2, 24, 24, 16), (2, 4, 2, 33, 33, 8)]
     extra = []
@@ -3731,7 +3783,7 @@ def attention_edge_cases(dev, large: bool = True) -> list:
                                        device=dev)
                        for h, s in ((H, Sq), (Hkv, Sk), (Hkv, Sk)))
             cases.append((q, k, v, dict(kw)))
-    return cases
+    return cases + (whisper_attention_cases(dev) if large else [])
 
 
 def rwkv6_edge_cases(dev, large: bool = True) -> list:
@@ -4000,13 +4052,20 @@ def phase_lm_kernels(dev) -> None:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rwkv6_scan as RW
     worst, n = {}, {}
+    whisper = {(Sq, Sk) for Sq, Sk in WHISPER_ATTN}
     for q, k, v, kw in attention_edge_cases(dev):
         _, share, _ = check_lm_kernel("flash_attention", (q, k, v), kw)
-        key = ("flash_attention "
-               f"({FA.kernel_path(q.dtype, q.shape[-1]).replace('_', ' ')})")
-        worst[key] = max(worst.get(key, 0), share)
-        n[key] = n.get(key, 0) + 1
-    assert len(worst) == 2, worst         # both paths ran
+        path = FA.kernel_path(q.dtype, q.shape[-1]).replace('_', ' ')
+        keys = [f"flash_attention ({path})"]
+        if (q.shape[2], k.shape[2]) in whisper:
+            keys.append(f"of them Whisper's non-causal calls ({path})")
+        for key in keys:
+            worst[key] = max(worst.get(key, 0), share)
+            n[key] = n.get(key, 0) + 1
+    assert {"flash_attention (tensor cores)", "flash_attention (cuda cores)",
+            "of them Whisper's non-causal calls (tensor cores)",
+            "of them Whisper's non-causal calls (cuda cores)"} == set(worst), \
+        worst                             # both paths ran
     key = f"rwkv6 ({RW.PATH.replace('_', ' ')})"
     for args in rwkv6_edge_cases(dev):
         _, share, _ = check_lm_kernel("rwkv6", args[:5],
@@ -4046,22 +4105,35 @@ def patched_lm_kernels(fa=None, rw=None):
 @contextlib.contextmanager
 def capture_lm_calls():
     """While active, keeps (in the dict it yields) the arguments of the
-    first ``flash_attention`` call of each window (the local and the
-    global layers) and of the first ``rwkv6_scan`` call."""
+    first ``flash_attention`` call of each kind (by window, causal mask
+    and whether Sq == Sk: a local and a global layer; an encoder, a
+    decoder and a cross-attention layer) and of the first
+    ``rwkv6_scan`` call."""
     calls = {}
 
     def fa(f, q, k, v, causal, window, softcap, scale):
         kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-        calls.setdefault(("flash_attention", window), ((q, k, v), kw))
+        calls.setdefault(("flash_attention", window, bool(causal),
+                          q.shape[2] == k.shape[2]), ((q, k, v), kw))
         return f(q, k, v, **kw)
 
     def rw(f, r, k, v, w, u, chunk):
-        calls.setdefault(("rwkv6", None), ((r, k, v, w, u),
-                                           dict(chunk=chunk)))
+        calls.setdefault(("rwkv6", None, True, True),
+                         ((r, k, v, w, u), dict(chunk=chunk)))
         return f(r, k, v, w, u, chunk=chunk)
 
     with patched_lm_kernels(fa, rw):
         yield calls
+
+
+def call_label(name: str, window, causal: bool, same: bool) -> str:
+    if name == "rwkv6":
+        return "layer 0"
+    if not same:
+        return "cross-attention layer (non-causal, Sq != Sk)"
+    if not causal:
+        return "encoder layer (non-causal)"
+    return f"local (window {window}) layer" if window else "global layer"
 
 
 def plain_lm_kernels():
@@ -4097,18 +4169,22 @@ def _state_not_carried(f, r, k, v, w, u, chunk):
 # Faults a kernel could plausibly have, each run through the real kernel
 # in every layer: how far each moves the full-depth logits shows what the
 # end-to-end LOGIT_BOUND can see (the captured-argument checks decide).
+# name -> (flash_attention's fault or None, rwkv6's fault or None)
 LM_CONTROLS = {
-    "rwkv6": [
-        ("the u bonus dropped", None,
-         lambda f, r, k, v, w, u, chunk: f(r, k, v, w, torch.zeros_like(u),
-                                           chunk=chunk)),
-        ("the state not carried across chunks", None, _state_not_carried)],
-    "flash_attention": [
-        ("the window dropped",
-         lambda f, q, k, v, causal, window, softcap, scale: f(
-             q, k, v, causal=causal, window=None, softcap=softcap,
-             scale=scale), None),
-        ("query head h reading KV head h % Hkv", _gqa_mismapped, None)],
+    "the u bonus dropped": (
+        None, lambda f, r, k, v, w, u, chunk: f(r, k, v, w,
+                                                torch.zeros_like(u),
+                                                chunk=chunk)),
+    "the state not carried across chunks": (None, _state_not_carried),
+    "the window dropped": (
+        lambda f, q, k, v, causal, window, softcap, scale: f(
+            q, k, v, causal=causal, window=None, softcap=softcap,
+            scale=scale), None),
+    "query head h reading KV head h % Hkv": (_gqa_mismapped, None),
+    "causal forced on in the calls made with causal=False": (
+        lambda f, q, k, v, causal, window, softcap, scale: f(
+            q, k, v, causal=True, window=window, softcap=softcap,
+            scale=scale), None),
 }
 
 
@@ -4162,6 +4238,8 @@ LOGIT_BOUND = 0.1              # |logits - plain logits| / max |logits|
 #   kernel checks at the captured arguments decide
 F32_LOGIT_BOUND = 1e-4         # the same in float32 at 2 layers, as the
 #                                CPU tests hold the port to the reference
+ENC_FRAMES = 1500              # Whisper's encoder frames: a 30 s window
+#                                after its stride-2 convolution stem
 
 
 def serve_requests(seed: int, vocab: int) -> list:
@@ -4170,6 +4248,53 @@ def serve_requests(seed: int, vocab: int) -> list:
     rng = np.random.RandomState(seed)
     return [Request(prompt=[int(t) for t in rng.randint(0, vocab, n)],
                     max_new_tokens=16) for n in (16, 32, 48, 64)]
+
+
+def enc_embeds(cfg, B: int, seed: int, dev):
+    """N(0, 1) frame embeddings (B, ENC_FRAMES, d_model) from a seeded
+    generator on the card, in the model dtype: the encoder's input
+    (Whisper's convolution stem is a stub in the reference)."""
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 7)
+    return torch.randn((B, ENC_FRAMES, cfg.d_model), generator=gen,
+                       device=dev).to(T.model_dtype(cfg))
+
+
+def prefill_launches(cfg, kernel: str) -> int:
+    """``kernel``'s launches in one ``prefill``: one per RWKV layer, or one
+    per attention layer, encoder layer and cross-attention."""
+    from repro_torch.models.config import LayerKind
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    if kernel == "rwkv6":
+        return kinds.count(LayerKind.RWKV)
+    attn = sum(k in (LayerKind.ATTN, LayerKind.ATTN_LOCAL) for k in kinds)
+    return attn + cfg.enc_layers + (cfg.n_layers if cfg.cross_attention
+                                    else 0)
+
+
+def greedy_by_steps(cfg, params, reqs: list, max_len: int, dev,
+                    enc_out=None) -> list:
+    """``ServeEngine.generate``'s loop (prompts padded on the right with
+    0, every row stepped through the longest prompt, then greedy, no
+    EOS) with ``decode_step`` given ``enc_out``: the engine itself, as
+    the reference's, never passes it."""
+    from repro_torch.models import transformer as T
+    B, longest = len(reqs), max(len(r.prompt) for r in reqs)
+    toks = torch.zeros((B, longest), dtype=torch.int64, device=dev)
+    for i, r in enumerate(reqs):
+        toks[i, :len(r.prompt)] = torch.as_tensor(r.prompt)
+    caches = T.init_cache(cfg, B, max_len, device=dev)
+    for t in range(longest):
+        logits, caches = T.decode_step(cfg, params, caches, toks[:, t], t,
+                                       enc_out=enc_out)
+    outs = []
+    for k in range(max(r.max_new_tokens for r in reqs)):
+        cur = torch.argmax(logits, dim=-1)
+        outs.append(cur)
+        logits, caches = T.decode_step(cfg, params, caches, cur,
+                                       longest + k, enc_out=enc_out)
+    return torch.stack(outs, 1).tolist()
 
 
 def serve_bf16(tag: str, cfg, params, seed: int, dev) -> None:
@@ -4211,26 +4336,87 @@ def serve_bf16(tag: str, cfg, params, seed: int, dev) -> None:
                 f"{tag} decode step (batch 4, position 64)")
 
 
-def serve_f32(tag: str, cfg, kernel: str, seed: int, dev) -> None:
-    """``ServeEngine.generate`` in float32 at 2 layers and full width.
-    The engine fills its caches and decodes by decode steps, which run no
-    kernel (decode attention and ``rwkv6_step`` stay PyTorch, as the
-    reference keeps them in XLA); so its greedy tokens are held to greedy
-    decoding by repeated ``prefill`` over each padded prompt and the
-    tokens so far (padded on the right with 0 to the longest prompt, as
-    the engine feeds it), which launches ``kernel`` in every layer of
-    every call. Then that prefill's logits against the plain-swapped
-    prefill's, within F32_LOGIT_BOUND."""
+def serve_cross(tag: str, cfg, params, frames, seed: int, dev) -> None:
+    """Whisper's decoder with cross-attention, which ``ServeEngine`` (as
+    the reference's) leaves out: 16 greedy ``decode_step`` calls of
+    batch 4 given the encoder's output, each launching
+    ``flash_attention`` once per decoder layer (Sq = 1 over the encoder
+    frames, non-causal)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as T
+    reqs = serve_requests(seed, cfg.vocab)
+    enc_out = T._encoder(cfg, params, frames[:len(reqs)])
+    tok = torch.as_tensor([r.prompt[0] for r in reqs], device=dev)
+    caches = T.init_cache(cfg, len(reqs), 128, device=dev)
+    T.decode_step(cfg, params, caches, tok, 0, enc_out=enc_out)
+    torch.cuda.synchronize()
+    caches = T.init_cache(cfg, len(reqs), 128, device=dev)
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in range(16):
+        logits, caches = T.decode_step(cfg, params, caches, tok, t,
+                                       enc_out=enc_out)
+        tok = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    paths = dict(FA.PATH_LAUNCHES)
+    log(f"[{tag} serve cross] 16 decode steps of batch 4 with the "
+        f"encoder's output ({tuple(enc_out.shape)}): {wall:.3f} s, "
+        f"{wall / 16 * 1e3:.2f} ms per step ({16 * 4 / wall:.1f} tokens/s);"
+        f" flash_attention {counts['flash_attention']} launches (tensor "
+        f"cores {paths['tensor_cores']}, CUDA cores {paths['cuda_cores']})")
+    assert counts["flash_attention"] == 16 * cfg.n_layers, counts
+    assert paths["cuda_cores"] == 0, paths
+    assert bool(torch.isfinite(logits).all())
+
+
+def serve_f32(tag: str, cfg, kernel: str, seed: int, dev,
+              n_layers: int = 2) -> None:
+    """Serving in float32 at ``n_layers`` layers (and as many encoder
+    layers) at full width. The engine fills its caches and decodes by
+    decode steps, which run no kernel for the mixers (decode attention,
+    ``rwkv6_step`` and Mamba's step stay PyTorch, as the reference keeps
+    them in XLA); so its greedy tokens are held to greedy decoding by
+    repeated ``prefill`` over each padded prompt and the tokens so far
+    (padded on the right with 0 to the longest prompt, as the engine
+    feeds it), which launches ``kernel`` in every layer of every call.
+    Whisper's tokens come from the engine's loop with cross-attention
+    to the encoder's output (``greedy_by_steps``), and its prefill takes
+    the frames. An MoE layer's capacity, C = int(capacity_factor * S * K
+    / E) slots per expert, grows with the prefill's length S and drops
+    the latest tokens first, where a decode step (S = 1) drops none: the
+    two paths compute the same function only where no token is dropped,
+    so this check runs the MoE configs at capacity_factor E / K (C >= S)
+    and shows that no prefill dropped a token. Then that prefill's
+    logits against the plain-swapped prefill's, within
+    F32_LOGIT_BOUND."""
+    from dataclasses import replace
     from repro_torch.kernels import ops as kops
     from repro_torch.models import transformer as T
     from repro_torch.serve import ServeEngine
-    n_layers, n_new = 2, 16
-    cfg32 = cfg.reduced(n_layers=n_layers, dtype="float32")
+    n_new = 16
+    cut = dict(n_layers=n_layers, dtype="float32")
+    if cfg.enc_layers:
+        cut["enc_layers"] = n_layers
+    if cfg.moe:
+        cut["moe"] = replace(cfg.moe, capacity_factor=cfg.moe.num_experts
+                             / cfg.moe.top_k)
+    cfg32 = cfg.reduced(**cut)
     params = T.init_params(cfg32, seed + 1, device=dev)
     reqs = serve_requests(seed + 1, cfg.vocab)
-    eng = ServeEngine(cfg32, params, max_len=128, device=dev)
+    extra = {}
     t0 = time.perf_counter()
-    outs = eng.generate(reqs)
+    if cfg.enc_layers:
+        extra["enc_embeds"] = enc_embeds(cfg32, len(reqs), seed + 1, dev)
+        outs = greedy_by_steps(cfg32, params, reqs, 128, dev, enc_out=(
+            T._encoder(cfg32, params, extra["enc_embeds"])))
+        how = "the engine's loop with cross-attention"
+    else:
+        outs = ServeEngine(cfg32, params, max_len=128,
+                           device=dev).generate(reqs)
+        how = "generate"
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     longest = max(len(r.prompt) for r in reqs)
@@ -4239,20 +4425,29 @@ def serve_f32(tag: str, cfg, kernel: str, seed: int, dev) -> None:
         toks[i, :len(r.prompt)] = torch.as_tensor(r.prompt)
     kops.reset_launch_counts()
     seq = toks
-    for _ in range(n_new):
-        nxt = torch.argmax(T.prefill(cfg32, params, seq), dim=-1)
-        seq = torch.cat([seq, nxt[:, None]], dim=1)
+    with moe_metrics() as moe_seen:
+        for _ in range(n_new):
+            nxt = torch.argmax(T.prefill(cfg32, params, seq, **extra),
+                               dim=-1)
+            seq = torch.cat([seq, nxt[:, None]], dim=1)
     launched = kops.launch_counts()[kernel]
     by_prefill = seq[:, longest:].tolist()
-    assert launched == n_new * n_layers, (kernel, launched)
+    assert launched == n_new * prefill_launches(cfg32, kernel), \
+        (kernel, launched)
+    assert all(float(m["dropped_frac"]) == 0.0 for m in moe_seen)
     assert by_prefill == outs, (by_prefill, outs)
-    logits = T.prefill(cfg32, params, toks)
+    logits = T.prefill(cfg32, params, toks, **extra)
     with plain_lm_kernels():
-        plain = T.prefill(cfg32, params, toks)
+        plain = T.prefill(cfg32, params, toks, **extra)
     rel = float((logits - plain).abs().max() / plain.abs().max())
     assert rel <= F32_LOGIT_BOUND, rel
-    log(f"[{tag} serve f32] {n_layers} layers at full width in float32: "
-        f"generate {wall:.3f} s (decode steps only, no kernel); its "
+    layers = f"{n_layers} layers" + (f" (and {n_layers} encoder layers)"
+                                     if cfg.enc_layers else "")
+    if cfg.moe:
+        layers += (f", capacity_factor {cut['moe'].capacity_factor:g} (no "
+                   f"token dropped in {len(moe_seen)} MoE calls)")
+    log(f"[{tag} serve f32] {layers} at full width in float32: "
+        f"{how} {wall:.3f} s (decode steps only); its "
         f"{n_new} greedy tokens per request equal to greedy decoding by "
         f"repeated prefill ({kernel} {launched} launches; first tokens "
         f"{[o[0] for o in outs]}); that prefill's logits within {rel:.3g} "
@@ -4267,43 +4462,150 @@ def _leaves(tree):
     return [t for v in tree.values() for t in _leaves(v)]
 
 
+@contextlib.contextmanager
+def moe_metrics():
+    """While active, keeps (in the list it yields) the metrics of each
+    ``moe_apply`` call of the model (layer 0's first)."""
+    from repro_torch.models import transformer as T
+    seen, orig = [], T.moe_apply
+
+    def spy(*a, **kw):
+        out, m = orig(*a, **kw)
+        seen.append(m)
+        return out, m
+
+    T.moe_apply = spy
+    try:
+        yield seen
+    finally:
+        T.moe_apply = orig
+
+
+@contextlib.contextmanager
+def moe_routing(replay: list = None):
+    """While active, keeps (in the list it yields) the routing choices of
+    each MoE layer in call order: each token's top-k experts and each
+    sequence's heaviest expert. With ``replay`` (such a list), each
+    layer takes the recorded choices instead of its own, with its own
+    probabilities for them: a run then differs from the recorded one by
+    rounding alone, not by a near-tie of a router that the rounding
+    flipped. The script's own switch (it patches ``models.moe``)."""
+    from repro_torch.models import moe as TM
+    seen, orig = [], (TM._top_k, TM._heaviest)
+    pending = list(replay or [])
+
+    def top_k(probs, k):
+        if replay is None:
+            vals, idx = orig[0](probs, k)
+        else:
+            idx = pending.pop(0)
+            vals = probs.gather(-1, idx)
+        seen.append(idx)
+        return vals, idx
+
+    def heaviest(mass):
+        heavy = orig[1](mass) if replay is None else pending.pop(0)
+        seen.append(heavy)
+        return heavy
+
+    TM._top_k, TM._heaviest = top_k, heaviest
+    try:
+        yield seen
+    finally:
+        TM._top_k, TM._heaviest = orig
+    assert not pending, f"{len(pending)} recorded choices left unused"
+
+
+def mamba_share(tag: str, run) -> None:
+    """One more warm call with each Mamba scan timed on the host between
+    two synchronizes: the scans' share of the call's wall time (the
+    scan is a PyTorch loop over the sequence, host-paced)."""
+    from repro_torch.models import ssm as TS
+    spent, orig = [], TS._selective_scan
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    TS._selective_scan = timed
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        TS._selective_scan = orig
+    log(f"[{tag}] Mamba scans (host timing, a synchronize around each): "
+        f"{len(spent)} scans, {sum(spent) * 1e3:.1f} ms of the call's "
+        f"{wall * 1e3:.1f} ms ({sum(spent) / wall:.1%}), "
+        f"{sum(spent) / len(spent) * 1e3:.1f} ms a layer")
+
+
 def phase_lm(tag: str, arch: str, B: int, S: int, kernel: str,
-             expect: int, seed: int, dev) -> list:
-    """Phases K and L: ``arch`` at full width and depth in bf16 with
-    seeded random weights: ``prefill`` of B x S random tokens cold, then
-    warm with every launch counter zeroed (``kernel`` launches
-    ``expect`` times, the other LM kernel never);
-    the logits finite, of shape (B, vocab), within LOGIT_BOUND x max
-    |logit| of the same call with the plain versions swapped in, and
-    how far each of LM_CONTROLS' faults moves them; the kernel at its
-    captured arguments (``measure_lm_kernel``); a profiled warm call;
-    then serving in bf16 and float32. Returns the kernel records."""
+             expect: int, seed: int, dev, n_layers: int = None,
+             controls: tuple = None, must_see: tuple = (),
+             f32_layers: int = 2) -> list:
+    """Phases K, L and N-Q: ``arch`` at full width in bf16 with seeded
+    random weights, at full depth or cut to ``n_layers``: ``prefill`` of
+    B x S random tokens (and, for Whisper, B x ENC_FRAMES frames) cold,
+    then warm with every launch counter zeroed (``kernel`` launches
+    ``expect`` times, the other LM kernel never); the logits finite, of
+    shape (B, vocab), within LOGIT_BOUND x max |logit| of the same call
+    with the plain versions swapped in, and how far each of
+    ``controls`` (LM_CONTROLS' faults; ``must_see`` must move them
+    beyond the bound) moves them; MoE layer 0's metrics and the Mamba
+    scans' share where the model has them; the kernel at its captured
+    arguments (``measure_lm_kernel``); a profiled warm call; then
+    serving in bf16 (and Whisper's cross-attending decode loop) and
+    float32 at ``f32_layers``. Returns the kernel records."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.models import transformer as T
-    cfg = get_config(arch)
+    from repro_torch.models.config import LayerKind
+    full = get_config(arch)
+    cfg = full.reduced(n_layers=n_layers) if n_layers else full
+    controls = controls if controls is not None else {
+        "rwkv6": ("the u bonus dropped",
+                  "the state not carried across chunks"),
+        "flash_attention": ("the window dropped",
+                            "query head h reading KV head h % Hkv")}[kernel]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed, device=dev)
     torch.cuda.synchronize()
     n_par = sum(t.numel() for t in _leaves(params))
-    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers (depth cut)"
+             if n_layers else f"{cfg.n_layers} layers")
+    if cfg.enc_layers:
+        depth += f" and {cfg.enc_layers} encoder layers"
+    width = (f", {cfg.moe.num_experts} experts top {cfg.moe.top_k} of ff "
+             f"{cfg.moe.d_ff_expert}" if cfg.moe else "")
+    log(f"[{tag}] {cfg.name}: {depth}, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads ({cfg.n_kv_heads} KV) of {cfg.hd}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}: {n_par / 1e9:.3f}B "
-        f"parameters ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB), "
+        f"{cfg.d_ff}{width}, vocab {cfg.vocab}, {cfg.dtype}: "
+        f"{n_par / 1e9:.3f}B parameters "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB), "
         f"seeded random, drawn in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    extra = ({"enc_embeds": enc_embeds(cfg, B, seed, dev)}
+             if cfg.enc_layers else {})
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rwkv6_scan as RW
-    with capture_lm_calls() as calls:
+    with capture_lm_calls() as calls, moe_metrics() as moe_seen:
         logits, cold_s, warm_ms, peak, _ = timed_calls(
-            lambda: T.prefill(cfg, params, tokens))
+            lambda: T.prefill(cfg, params, tokens, **extra))
         counts = kops.launch_counts()
         paths = dict(FA.PATH_LAUNCHES)
     other = "rwkv6" if kernel == "flash_attention" else "flash_attention"
-    log(f"[{tag}] prefill B={B} x S={S}: cold {cold_s:.3f} s, warm "
+    frames = (f" over {B} x {ENC_FRAMES} encoder frames"
+              if cfg.enc_layers else "")
+    log(f"[{tag}] prefill B={B} x S={S}{frames}: cold {cold_s:.3f} s, warm "
         f"{warm_ms:.1f} ms ({B * S / warm_ms * 1e3:.0f} tokens/s), peak "
         f"{peak / 2 ** 30:.2f} GiB above the weights; launches {kernel} "
         f"{counts[kernel]}, {other} {counts[other]}; flash_attention by "
@@ -4315,48 +4617,112 @@ def phase_lm(tag: str, arch: str, B: int, S: int, kernel: str,
         assert paths == {"tensor_cores": expect, "cuda_cores": 0}, paths
     assert logits.shape == (B, cfg.vocab) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all())
-    with plain_lm_kernels():
+    if cfg.moe:
+        n_moe = sum(cfg.has_moe_at(i) for i in range(cfg.n_layers))
+        drop = [float(m["dropped_frac"]) for m in moe_seen[:n_moe]]
+        heavy = [float(m["heavy_mass"]) for m in moe_seen[:n_moe]]
+        C = max(int(cfg.moe.capacity_factor * S * cfg.moe.top_k
+                    / cfg.moe.num_experts), 1)
+        log(f"[{tag}] MoE layer 0 at the prefill's input ({B} x {S} "
+            f"tokens, capacity C = {C} per expert and sequence): dropped_frac "
+            f"{drop[0]:.4f}, heavy_mass {heavy[0]:.4f}; over the {n_moe} "
+            f"MoE layers dropped_frac {min(drop):.4f}-{max(drop):.4f}, "
+            f"heavy_mass {min(heavy):.4f}-{max(heavy):.4f}")
+    del moe_seen
+    scale = float(logits.abs().max())
+    routes = None
+    if cfg.moe:
+        # an MoE router's top-k is discontinuous: a rounding difference
+        # can flip a near-tie and move a token to another expert. The
+        # plain-swapped run takes the kernel run's routing choices;
+        # without them, how many choices flip and how far the logits go
+        with moe_routing() as routes:
+            T.prefill(cfg, params, tokens, **extra)
+        with plain_lm_kernels(), moe_routing() as free:
+            loose = T.prefill(cfg, params, tokens, **extra)
+        flips = sum(int((a != b).sum()) for a, b in zip(routes, free))
+        log(f"[{tag}] without the kernel run's routing, the plain-swapped "
+            f"prefill's logits lie {float((logits - loose).abs().max()) / scale:.3g}"
+            f" of max |logit| from the kernel run's: {flips} of "
+            f"{sum(r.numel() for r in routes)} routing choices (top-k "
+            f"experts, heaviest experts) differ in its {len(routes) // 2} "
+            f"MoE layers")
+        del free, loose
+    with plain_lm_kernels(), (moe_routing(replay=routes) if routes
+                              else contextlib.nullcontext()):
         t0 = time.perf_counter()
-        plain = T.prefill(cfg, params, tokens)
+        plain = T.prefill(cfg, params, tokens, **extra)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
-    scale = float(logits.abs().max())
     diff = float((logits - plain).abs().max())
     agree = int((logits.argmax(-1) == plain.argmax(-1)).sum())
-    log(f"[{tag}] logits against the plain-swapped prefill ({plain_s:.2f} s):"
-        f" max |d| {diff:.4g} = {diff / scale:.3g} of max |logit| "
+    pinned = ", MoE routing pinned to the kernel run's" if routes else ""
+    log(f"[{tag}] logits against the plain-swapped prefill ({plain_s:.2f} s"
+        f"{pinned}): max |d| {diff:.4g} = {diff / scale:.3g} of max |logit| "
         f"{scale:.4g} (bound {LOGIT_BOUND}: two bf16 runs whose kernel "
         f"outputs differ by f32 rounding and a bf16 ulp in each of "
         f"{cfg.n_layers} layers); argmax equal in {agree} of {B} rows")
     assert diff <= LOGIT_BOUND * scale, (diff, scale)
-    for what, fa, rw in LM_CONTROLS[kernel]:
+    del routes
+    for what in controls:
+        fa, rw = LM_CONTROLS[what]
         with patched_lm_kernels(fa, rw):
-            bad = T.prefill(cfg, params, tokens)
+            bad = T.prefill(cfg, params, tokens, **extra)
         moved = float((bad - plain).abs().max()) / scale
         agree = int((bad.argmax(-1) == plain.argmax(-1)).sum())
         log(f"[{tag}] control, {kernel} with {what} in every layer: logits "
             f"{moved:.3g} of max |logit| from the plain-swapped prefill's "
             f"({'beyond' if moved > LOGIT_BOUND else 'within'} the bound "
             f"{LOGIT_BOUND}); argmax equal in {agree} of {B} rows")
+        assert what not in must_see or moved > LOGIT_BOUND, (what, moved)
         del bad
     del plain, logits
+    if LayerKind.MAMBA in cfg.pattern:
+        mamba_share(tag, lambda: T.prefill(cfg, params, tokens, **extra))
     recs = []
-    for (name, window), (args, kw) in sorted(
+    for (name, window, causal, same), (args, kw) in sorted(
             calls.items(), key=lambda kv: str(kv[0])):
-        label = ("layer 0" if name == "rwkv6" else
-                 f"{'local (window ' + str(window) + ')' if window else 'global'} layer")
         recs.append(measure_lm_kernel(name, args, kw, counts[name], tag,
-                                      label))
+                                      call_label(name, window, causal,
+                                                 same)))
     del calls
     torch.cuda.empty_cache()
-    profile_run(lambda: T.prefill(cfg, params, tokens), f"{tag} prefill")
+    profile_run(lambda: T.prefill(cfg, params, tokens, **extra),
+                f"{tag} prefill")
     serve_bf16(tag, cfg, params, seed, dev)
-    del params, tokens
+    if cfg.enc_layers:
+        serve_cross(tag, cfg, params, extra["enc_embeds"], seed, dev)
+    del params, tokens, extra
     torch.cuda.empty_cache()
-    serve_f32(tag, cfg, kernel, seed, dev)
+    serve_f32(tag, cfg, kernel, seed, dev, n_layers=f32_layers)
     torch.cuda.empty_cache()
     return recs
 
+
+def phases_nq(seed: int, dev, lap) -> list:
+    """Phases N-Q: the encoder-decoder, MoE and Mamba configs at full
+    width, each cut to the most layers of its period that fit the card
+    with the plain-swapped prefill beside them (PERF.md, section 4).
+    Returns their flash_attention records."""
+    causal_forced = "causal forced on in the calls made with causal=False"
+    gqa = "query head h reading KV head h % Hkv"
+    recs = phase_lm("N whisper-base", "whisper_base", 8, 448,
+                    "flash_attention", 18, seed, dev,
+                    controls=(causal_forced,), must_see=(causal_forced,))
+    lap("N")
+    recs += phase_lm("O mixtral-8x22b", "mixtral_8x22b", 1, 8192,
+                     "flash_attention", 12, seed, dev, n_layers=12,
+                     controls=("the window dropped",))
+    lap("O")
+    recs += phase_lm("P arctic-480b", "arctic_480b", 2, 4096,
+                     "flash_attention", 2, seed, dev, n_layers=2,
+                     controls=(gqa,), f32_layers=1)
+    lap("P")
+    recs += phase_lm("Q jamba-v0.1-52b", "jamba_v0_1_52b", 2, 512,
+                     "flash_attention", 2, seed, dev, n_layers=16,
+                     controls=(gqa,), f32_layers=8)
+    lap("Q")
+    return recs
 
 
 def main() -> int:
@@ -4416,9 +4782,10 @@ def main() -> int:
     recs_l = phase_lm("L gemma2-27b", "gemma2_27b", 1, 8192,
                       "flash_attention", 46, args.seed, dev)
     lap("L")
+    recs_nq = phases_nq(args.seed, dev, lap)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": recs_b + recs_d + recs_fg + recs_j
-                      + recs_k + recs_l}), flush=True)
+                      + recs_k + recs_l + recs_nq}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

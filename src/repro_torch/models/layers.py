@@ -66,9 +66,17 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA lowers it op by op: x * (1 / (1 + exp(-x))),
+    each op rounded to x's dtype. ``F.silu`` rounds once; in bf16 the
+    two differ by an ulp here and there, and an ulp can flip a near-tie
+    of the next MoE router (tests/test_torch_moe_ssm.py)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def mlp_apply(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
     if kind == "swiglu":
-        return (F.silu(x @ p["wi0"]) * (x @ p["wi1"])) @ p["wo"]
+        return (silu(x @ p["wi0"]) * (x @ p["wi1"])) @ p["wo"]
     if kind == "geglu":
         return (_gelu(x @ p["wi0"]) * (x @ p["wi1"])) @ p["wo"]
     if kind == "sq_relu":

@@ -1,18 +1,22 @@
 """The architecture zoo's stacked-block LM, serving half: parameters,
 forward, prefill and the cache decode step.
 
-PyTorch twin of ``repro.models.transformer`` for the dense attention
-(full, sliding-window, soft-capped, GQA) and RWKV-6 layers: RWKV-6,
-Gemma, Gemma-2, DeepSeek, Nemotron and InternVL2's text path. Params
-are the reference's nested dicts, stacked per pattern position with a
-leading ``n_blocks`` dim; the blocks run in a Python loop where the
-reference scans them. MoE, Mamba and the encoder-decoder path raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 8's later part), and
-the sharding annotations are left out (no mesh here).
+PyTorch twin of ``repro.models.transformer`` for all ten configs: dense
+attention (full, sliding-window, soft-capped, GQA), RWKV-6 and Mamba
+mixers, MoE feed-forward layers (with Arctic's dense residual) and
+Whisper's encoder-decoder (a bidirectional encoder over precomputed
+frame embeddings, cross-attention in every decoder layer). Params are
+the reference's nested dicts, stacked per pattern position with a
+leading ``n_blocks`` dim (the encoder's with ``enc_layers``); the
+blocks run in a Python loop where the reference scans them. The
+sharding annotations are left out (no mesh here); the axes stay in
+``param_defs``.
 
 The caches are updated in place: ``decode_step`` writes the new KV
-entries, token shift and RWKV state into the tensors of ``init_cache``
-and returns the same dict.
+entries, token shift, RWKV state and Mamba conv and ssm states into the
+tensors of ``init_cache`` and returns the same dict. Cross-attention
+keeps no cache: a decode step given ``enc_out`` projects it anew in
+every layer, as the reference does.
 """
 
 from __future__ import annotations
@@ -27,20 +31,11 @@ from ..columnar.table import resolve_device
 from .config import LayerKind, ModelConfig
 from .layers import (chunked_attention, decode_attention, mlp_apply,
                      mlp_param_shapes, rms_norm, rope)
-from .ssm import rwkv_mixer, rwkv_mixer_params
+from .moe import moe_apply, moe_param_shapes
+from .ssm import mamba_mixer, mamba_params, rwkv_mixer, rwkv_mixer_params
 
-LATER = "is ROADMAP.md queue 1 item 8's later part: not ported yet"
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE (models/moe.py) {LATER}")
-    if any(k == LayerKind.MAMBA for k in cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: Mamba {LATER}")
-    if cfg.enc_layers or cfg.cross_attention:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder and cross-attention {LATER}")
+DRAW_ELEMS = 1 << 28   # the most elements ``init_params`` draws at once
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -58,13 +53,14 @@ class PD:
     init: str = "normal"   # normal | zeros | ones
 
 
-def _attn_defs(cfg: ModelConfig) -> Dict[str, PD]:
+def _attn_defs(cfg: ModelConfig, cross: bool = False) -> Dict[str, PD]:
     d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    pre = "x" if cross else ""
     return {
-        "wq": PD((d, H * hd), (None, "model")),
-        "wk": PD((d, Hkv * hd), (None, "model")),
-        "wv": PD((d, Hkv * hd), (None, "model")),
-        "wo": PD((H * hd, d), ("model", None)),
+        pre + "wq": PD((d, H * hd), (None, "model")),
+        pre + "wk": PD((d, Hkv * hd), (None, "model")),
+        pre + "wv": PD((d, Hkv * hd), (None, "model")),
+        pre + "wo": PD((H * hd, d), ("model", None)),
     }
 
 
@@ -77,6 +73,37 @@ def _mlp_defs(cfg: ModelConfig) -> Dict[str, PD]:
     return out
 
 
+MODEL_AXIS_SIZE = 16  # the reference's production model axis
+
+
+def _moe_defs(cfg: ModelConfig) -> Dict[str, PD]:
+    """Expert-parallel axes where the experts divide the model axis
+    (Arctic 128, Jamba 16), tensor-parallel inside each expert
+    otherwise (Mixtral 8), as the reference lays them out."""
+    m = cfg.moe
+    ep = m.num_experts % MODEL_AXIS_SIZE == 0
+    out = {}
+    for name, shape in moe_param_shapes(cfg.d_model, m.d_ff_expert,
+                                        m.num_experts, cfg.mlp).items():
+        if name == "router":
+            axes = (None, None)
+        elif name.startswith("wi"):                      # (E, d, ff)
+            axes = ("model", None, None) if ep else (None, None, "model")
+        else:                                            # wo (E, ff, d)
+            axes = ("model", None, None) if ep else (None, "model", None)
+        out[name] = PD(shape, axes)
+    return out
+
+
+_MAMBA_AXES = {
+    "in_proj": (None, "model"), "conv_w": (None, "model"),
+    "conv_b": ("model",), "w_dt1": ("model", None),
+    "w_dt2": (None, "model"), "dt_b": ("model",),
+    "wB": ("model", None), "wC": ("model", None),
+    "A_log": ("model", None), "D": ("model",),
+    "out_proj": ("model", None),
+}
+
 _RWKV_AXES = {
     "mu": (None, None), "wr": (None, "model"), "wk": (None, "model"),
     "wv": (None, "model"), "wg": (None, "model"), "wo": ("model", None),
@@ -85,13 +112,24 @@ _RWKV_AXES = {
 }
 
 
-def _layer_defs(cfg: ModelConfig, pos: int) -> Dict[str, PD]:
+def _layer_defs(cfg: ModelConfig, pos: int, cross: bool = False
+                ) -> Dict[str, PD]:
     kind = cfg.layer_kind(pos)
     d = cfg.d_model
     defs: Dict[str, PD] = {"ln": PD((d,), (None,), "zeros"),
                            "ln2": PD((d,), (None,), "zeros")}
     if kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
         defs.update(_attn_defs(cfg))
+    elif kind == LayerKind.MAMBA:
+        dt_rank = max(d // 16, 8)
+        for name, shape in mamba_params(d, cfg.mamba_expand,
+                                        cfg.mamba_d_state, cfg.mamba_conv,
+                                        dt_rank).items():
+            if name == "ln":
+                continue
+            init = "ones" if name == "A_log" else (
+                "zeros" if name in ("conv_b", "dt_b", "D") else "normal")
+            defs[name] = PD(shape, _MAMBA_AXES[name], init)
     elif kind == LayerKind.RWKV:
         H = d // cfg.rwkv_head_dim
         for name, shape in rwkv_mixer_params(d, H, cfg.rwkv_head_dim).items():
@@ -100,15 +138,29 @@ def _layer_defs(cfg: ModelConfig, pos: int) -> Dict[str, PD]:
             init = "zeros" if name in ("w0", "gn") else "normal"
             defs[name] = PD(shape, _RWKV_AXES[name], init)
     else:
-        raise NotImplementedError(f"{cfg.name}: layer kind {kind} {LATER}")
-    for name, pd in _mlp_defs(cfg).items():
-        defs[f"mlp_{name}"] = pd
+        raise ValueError(f"{cfg.name}: layer kind {kind}")
+    if cross:
+        defs.update(_attn_defs(cfg, cross=True))
+        defs["lnx"] = PD((d,), (None,), "zeros")
+    if cfg.has_moe_at(pos):
+        for name, pd in _moe_defs(cfg).items():
+            defs[f"moe_{name}"] = pd
+        if cfg.moe.dense_residual:
+            for name, pd in _mlp_defs(cfg).items():
+                defs[f"dense_{name}"] = pd
+    else:
+        for name, pd in _mlp_defs(cfg).items():
+            defs[f"mlp_{name}"] = pd
     return defs
 
 
+def _stacked(n: int, layer: Dict[str, PD]) -> Dict[str, PD]:
+    return {name: PD((n,) + pd.shape, (None,) + pd.axes, pd.init)
+            for name, pd in layer.items()}
+
+
 def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The reference's parameter tree (names, shapes, init kinds)."""
-    _check_ported(cfg)
+    """The reference's parameter tree (names, shapes, axes, init kinds)."""
     d, V = cfg.d_model, cfg.vocab
     defs: Dict[str, Any] = {
         "embed": PD((V, d), (None, "model")),
@@ -116,12 +168,14 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         defs["head"] = PD((V, d), (None, "model"))
-    blocks = {}
-    for pos in range(cfg.period):
-        blocks[str(pos)] = {
-            name: PD((cfg.n_blocks,) + pd.shape, (None,) + pd.axes, pd.init)
-            for name, pd in _layer_defs(cfg, pos).items()}
-    defs["blocks"] = blocks
+    defs["blocks"] = {
+        str(pos): _stacked(cfg.n_blocks, _layer_defs(
+            cfg, pos, cross=cfg.cross_attention))
+        for pos in range(cfg.period)}
+    if cfg.enc_layers:
+        defs["encoder"] = _stacked(cfg.enc_layers, _layer_defs(
+            cfg.reduced(pattern=(LayerKind.ATTN,), moe=None), 0))
+        defs["enc_final_ln"] = PD((d,), (None,), "zeros")
     return defs
 
 
@@ -136,9 +190,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None
     """Random weights from a seeded ``torch.Generator`` on the device,
     with the reference's distributions: N(0, 1/fan_in) drawn in f32 and
     cast to the model dtype (fan_in = the second-to-last dim), zeros and
-    ones where the reference puts them. Stacked leaves are drawn one
-    block at a time, so that the f32 draw never holds more than one
-    block's slice."""
+    ones where the reference puts them. Stacked leaves (the blocks' and
+    the encoder's) are drawn one block at a time, and a block's slice of
+    more than ``DRAW_ELEMS`` elements (MoE experts) in runs of its
+    leading rows of at most that many, so that the f32 draw stays
+    small beside the weights."""
     dev = resolve_device(device)
     dt = model_dtype(cfg)
     gen = torch.Generator(device=dev)
@@ -152,13 +208,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None
         fan_in = pd.shape[-2] if len(pd.shape) >= 2 else pd.shape[-1]
         scale = 1.0 / np.sqrt(max(fan_in, 1))
         out = torch.empty(pd.shape, dtype=dt, device=dev)
-        slices = out if path[0] == "blocks" else out[None]
-        for s in slices:
+        for s in _draw_slices(out, path[0] in ("blocks", "encoder")):
             s.copy_(torch.randn(s.shape, generator=gen, dtype=torch.float32,
                                 device=dev).mul_(scale))
         return out
 
     return _leaf_map(mk, param_defs(cfg))
+
+
+def _draw_slices(out: torch.Tensor, stacked: bool) -> list:
+    """The views of ``out`` that ``init_params`` draws one at a time: the
+    whole leaf, or each block of a stacked one, that block cut into runs
+    of its leading rows where it holds more than ``DRAW_ELEMS``."""
+    if not stacked:
+        return [out]
+    slices = []
+    for blk in out:
+        if blk.dim() < 2 or blk.numel() <= DRAW_ELEMS:
+            slices.append(blk)
+            continue
+        rows = max(DRAW_ELEMS // (blk.numel() // blk.shape[0]), 1)
+        slices.extend(blk.split(rows))
+    return slices
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -204,14 +275,21 @@ def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
 
 
 def _attention(cfg: ModelConfig, p: dict, x, positions, kind,
-               cache=None, cache_len: Optional[int] = None):
-    """Self-attention of x (B, S, d). ``cache``: (k, v) buffers (B, Hkv,
-    max_len, hd), written in place at ``cache_len``."""
+               cache=None, cache_len: Optional[int] = None, pre: str = "",
+               kv_override=None):
+    """Attention of x (B, S, d). Self-attention (roped, causal) over x,
+    or with ``kv_override`` (B, Sk, d) cross-attention over it with the
+    ``pre``-prefixed weights: no rope, no mask. ``cache``: (k, v)
+    buffers (B, Hkv, max_len, hd), written in place at ``cache_len``."""
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = rope(_heads(x @ p["wq"], H, hd), positions, cfg.rope_theta)
-    k = rope(_heads(x @ p["wk"], Hkv, hd), positions, cfg.rope_theta)
-    v = _heads(x @ p["wv"], Hkv, hd)
+    kv_src = x if kv_override is None else kv_override
+    q = _heads(x @ p[pre + "wq"], H, hd)
+    k = _heads(kv_src @ p[pre + "wk"], Hkv, hd)
+    v = _heads(kv_src @ p[pre + "wv"], Hkv, hd)
+    if kv_override is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     window = cfg.window if kind == LayerKind.ATTN_LOCAL else None
     if cache is not None:
         kc, vc = cache
@@ -223,30 +301,70 @@ def _attention(cfg: ModelConfig, p: dict, x, positions, kind,
         out = decode_attention(q, kc, vc, cache_len + S, window=window,
                                softcap=cfg.attn_softcap)
     else:
-        out = chunked_attention(q, k, v, causal=True, window=window,
-                                softcap=cfg.attn_softcap,
+        out = chunked_attention(q, k, v, causal=kv_override is None,
+                                window=window, softcap=cfg.attn_softcap,
                                 chunk=cfg.attn_chunk)
     out = out.transpose(1, 2).reshape(B, S, H * hd)
-    return out @ p["wo"]
+    return out @ p[pre + "wo"]
 
 
-def _ffn(cfg: ModelConfig, p: dict, h):
-    mlp_p = {k[len("mlp_"):]: v for k, v in p.items()
-             if k.startswith("mlp_")}
-    return mlp_apply(cfg.mlp, mlp_p, h)
+def _encoder_attention(cfg: ModelConfig, p: dict, h, positions):
+    """The encoder's bidirectional self-attention: roped at the encoder's
+    positions, no mask, and neither window nor softcap, whatever the
+    config says (the reference's encoder branch)."""
+    B, S, d = h.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = rope(_heads(h @ p["wq"], H, hd), positions, cfg.rope_theta)
+    k = rope(_heads(h @ p["wk"], Hkv, hd), positions, cfg.rope_theta)
+    v = _heads(h @ p["wv"], Hkv, hd)
+    out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    return out.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
+
+
+def _prefixed(p: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+def _ffn(cfg: ModelConfig, pos: int, p: dict, h):
+    if cfg.has_moe_at(pos):
+        m = cfg.moe
+        out, _ = moe_apply(_prefixed(p, "moe_"), h, mlp=cfg.mlp,
+                           num_experts=m.num_experts, top_k=m.top_k,
+                           capacity_factor=m.capacity_factor,
+                           skew_aware=m.skew_aware)
+        if m.dense_residual:
+            out = out + mlp_apply(cfg.mlp, _prefixed(p, "dense_"), h)
+        return out
+    return mlp_apply(cfg.mlp, _prefixed(p, "mlp_"), h)
 
 
 def _apply_layer(cfg: ModelConfig, pos: int, p: dict, x, positions,
                  cache: Optional[dict] = None,
-                 cache_len: Optional[int] = None):
+                 cache_len: Optional[int] = None, enc_out=None,
+                 causal: bool = True):
     """One layer. ``cache``: this layer's slices of the caches ("kv_k",
-    "kv_v" or "shift", "wkv"), updated in place."""
+    "kv_v", or "conv", "ssm", or "shift", "wkv"), updated in place.
+    ``causal=False``: the encoder's bidirectional self-attention.
+    ``enc_out``: cross-attention over it after the mixer (Whisper's
+    decoder)."""
     kind = cfg.layer_kind(pos)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     if kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
-        kv = (cache["kv_k"], cache["kv_v"]) if cache is not None else None
-        mix = _attention(cfg, p, h, positions, kind, cache=kv,
-                         cache_len=cache_len)
+        if not causal:
+            mix = _encoder_attention(cfg, p, h, positions)
+        else:
+            kv = (cache["kv_k"], cache["kv_v"]) if cache is not None \
+                else None
+            mix = _attention(cfg, p, h, positions, kind, cache=kv,
+                             cache_len=cache_len)
+    elif kind == LayerKind.MAMBA:
+        conv = cache["conv"] if cache is not None else None
+        ssm = cache["ssm"] if cache is not None else None
+        mix, (nc, ns) = mamba_mixer(p, h, cfg, conv_state=conv,
+                                    ssm_state=ssm, decode=cache is not None)
+        if cache is not None:
+            cache["conv"].copy_(nc)
+            cache["ssm"].copy_(ns)
     elif kind == LayerKind.RWKV:
         prev = cache["shift"] if cache is not None else None
         st = cache["wkv"] if cache is not None else None
@@ -256,10 +374,14 @@ def _apply_layer(cfg: ModelConfig, pos: int, p: dict, x, positions,
             cache["shift"].copy_(last_x)
             cache["wkv"].copy_(ns)
     else:
-        raise NotImplementedError(f"{cfg.name}: layer kind {kind} {LATER}")
+        raise ValueError(f"{cfg.name}: layer kind {kind}")
     x = x + mix
+    if cfg.cross_attention and enc_out is not None:
+        hx = rms_norm(x, p["lnx"], cfg.norm_eps)
+        x = x + _attention(cfg, p, hx, positions, LayerKind.ATTN, pre="x",
+                           kv_override=enc_out)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(cfg, p, h2)
+    return x + _ffn(cfg, pos, p, h2)
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens, embeds_prefix=None):
@@ -274,17 +396,36 @@ def embed_tokens(cfg: ModelConfig, params, tokens, embeds_prefix=None):
     return x
 
 
+def _encoder(cfg: ModelConfig, params, enc_embeds):
+    """Whisper-style encoder over precomputed frame embeddings (B, S_enc,
+    d): ``enc_layers`` bidirectional attention layers, then
+    ``enc_final_ln``."""
+    x = enc_embeds.to(model_dtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)
+    ecfg = cfg.reduced(pattern=(LayerKind.ATTN,), moe=None,
+                       cross_attention=False)
+    for b in range(cfg.enc_layers):
+        p = {k: v[b] for k, v in params["encoder"].items()}
+        x = _apply_layer(ecfg, 0, p, x, positions, causal=False)
+    return rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
+
+
 def forward(cfg: ModelConfig, params, tokens, embeds_prefix=None,
             enc_embeds=None):
-    """Training/prefill forward to final hidden states (B, S, d)."""
-    _check_ported(cfg)
-    if enc_embeds is not None:
-        raise NotImplementedError(f"{cfg.name}: the encoder {LATER}")
+    """Training/prefill forward to final hidden states (B, S, d). A
+    config with an encoder needs ``enc_embeds`` (B, S_enc, d_model)."""
+    enc_out = None
+    if cfg.enc_layers:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: forward needs enc_embeds, the "
+                             f"encoder's frame embeddings")
+        enc_out = _encoder(cfg, params, enc_embeds)
     x = embed_tokens(cfg, params, tokens, embeds_prefix)
     positions = torch.arange(x.shape[1], device=x.device)
     for b in range(cfg.n_blocks):
         for pos in range(cfg.period):
-            x = _apply_layer(cfg, pos, _block(params, pos, b), x, positions)
+            x = _apply_layer(cfg, pos, _block(params, pos, b), x, positions,
+                             enc_out=enc_out)
     return rms_norm(x, params["final_ln"], cfg.norm_eps)
 
 
@@ -301,8 +442,9 @@ def _logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                enc_len: int = 0, device=None) -> dict:
-    """Per-pattern-position stacked caches (n_blocks leading dim)."""
-    _check_ported(cfg)
+    """Per-pattern-position stacked caches (n_blocks leading dim).
+    ``enc_len`` is unused, as in the reference: cross-attention keeps no
+    cache."""
     dev = resolve_device(device)
     dt = model_dtype(cfg)
     nb, B = cfg.n_blocks, batch
@@ -314,6 +456,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             caches[str(pos)] = {
                 "kv_k": torch.zeros(shape, dtype=dt, device=dev),
                 "kv_v": torch.zeros(shape, dtype=dt, device=dev)}
+        elif kind == LayerKind.MAMBA:
+            din = cfg.mamba_expand * cfg.d_model
+            caches[str(pos)] = {
+                "conv": torch.zeros((nb, B, cfg.mamba_conv - 1, din),
+                                    dtype=dt, device=dev),
+                "ssm": torch.zeros((nb, B, din, cfg.mamba_d_state),
+                                   dtype=torch.float32, device=dev)}
         elif kind == LayerKind.RWKV:
             H = cfg.d_model // cfg.rwkv_head_dim
             K = cfg.rwkv_head_dim
@@ -327,11 +476,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def decode_step(cfg: ModelConfig, params, caches, token, cache_len: int,
                 enc_out=None):
-    """One decode step. token: (B,) int; cache_len: the token's position.
-    Returns (logits (B, V), caches), the caches updated in place."""
-    _check_ported(cfg)
-    if enc_out is not None:
-        raise NotImplementedError(f"{cfg.name}: cross-attention {LATER}")
+    """One decode step. token: (B,) int; cache_len: the token's position;
+    ``enc_out``: the encoder's output (B, S_enc, d) for cross-attention
+    (without it, Whisper's decoder runs without cross-attention, as the
+    reference's serving engine runs it). Returns (logits (B, V),
+    caches), the caches updated in place."""
     x = embed_tokens(cfg, params, token[:, None])
     cache_len = int(cache_len)
     positions = torch.full((1,), cache_len, dtype=torch.int32,
@@ -340,7 +489,7 @@ def decode_step(cfg: ModelConfig, params, caches, token, cache_len: int,
         for pos in range(cfg.period):
             c = {k: v[b] for k, v in caches[str(pos)].items()}
             x = _apply_layer(cfg, pos, _block(params, pos, b), x, positions,
-                             cache=c, cache_len=cache_len)
+                             cache=c, cache_len=cache_len, enc_out=enc_out)
     h = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return _logits(cfg, params, h[:, 0]), caches
 

@@ -955,25 +955,53 @@ def test_lm_wrappers_check_inputs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["rwkv6_7b", "gemma2_27b"])
-def test_smoke_prefill_on_card_equals_port_on_cpu(cuda, arch):
+@pytest.mark.parametrize("arch,launches", [
+    ("rwkv6_7b", 2), ("gemma2_27b", 2), ("whisper_base", 6),
+    ("mixtral_8x22b", 2), ("arctic_480b", 2), ("jamba_v0_1_52b", 1)])
+def test_smoke_prefill_on_card_equals_port_on_cpu(cuda, arch, launches):
     """A smoke config's prefill in float32 with the kernels on the card
-    (one launch per layer) within 1e-4 x max |logit| of the port's plain
-    run on the CPU from the same weights."""
+    (rwkv6 once per RWKV layer; flash_attention once per attention
+    layer, and for Whisper once per encoder layer and per
+    cross-attention) within 1e-4 x max |logit| of the port's plain run
+    on the CPU from the same weights; Whisper over 150 seeded encoder
+    frames."""
     from repro_torch.configs import get_smoke
     from repro_torch.models import transformer as T
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_smoke(arch).reduced(dtype="float32")
     params = T.init_params(cfg, 0, device="cpu")
     on_card = T.params_from_numpy(cfg, _as_numpy(params), device=cuda)
-    tokens = torch.as_tensor(np.random.RandomState(0).randint(
-        0, cfg.vocab, (2, 150)))
+    rng = np.random.RandomState(0)
+    tokens = torch.as_tensor(rng.randint(0, cfg.vocab, (2, 150)))
+    extra = {}
+    if cfg.enc_layers:
+        extra["enc_embeds"] = torch.as_tensor(
+            rng.randn(2, 150, cfg.d_model).astype(np.float32))
     TK.reset_launch_counts()
-    got = T.prefill(cfg, on_card, tokens.to(cuda)).cpu()
+    got = T.prefill(cfg, on_card, tokens.to(cuda),
+                    **{k: v.to(cuda) for k, v in extra.items()}).cpu()
     name = "rwkv6" if arch == "rwkv6_7b" else "flash_attention"
-    assert TK.launch_counts()[name] == cfg.n_layers
-    want = T.prefill(cfg, params, tokens)
+    assert TK.launch_counts()[name] == launches
+    want = T.prefill(cfg, params, tokens, **extra)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(6))
+def test_flash_attention_at_whisper_shapes(cuda, case):
+    """Whisper's non-causal calls at D = 64 (the encoder's 1500 frames,
+    not a multiple of the 64-key tile; 448 and 1 decoder rows over
+    them), bf16 on the tensor cores and f32 on the CUDA cores: within
+    the bound of the plain version, two launches bit-identical, each
+    counted on its path."""
+    from repro_torch.kernels import flash_attention as TFA
+    q, k, v, kw = chip_smoke.whisper_attention_cases(cuda)[case]
+    TK.reset_launch_counts()
+    chip_smoke.check_lm_kernel("flash_attention", (q, k, v), kw)
+    path = TFA.kernel_path(q.dtype, q.shape[-1])
+    assert path == ("tensor_cores" if q.dtype == torch.bfloat16
+                    else "cuda_cores")
+    assert TFA.PATH_LAUNCHES[path] == 2
 
 
 def _as_numpy(tree):
