@@ -180,10 +180,10 @@ wrong or if there is no CUDA device. Phases:
                sum|x| of a float64 sum on random ones with two launches
                bit-identical; timed beside torch.segment_reduce given the
                run lengths (events and device time);
-  K rwkv6-7b   RWKV-6 7B at full width and depth (32 layers) in bf16
-               with seeded random weights: prefill of 4 x 4096 tokens
+  K rwkv6-7b   RWKV-6 7B at full width, 8 of its 32 layers (K_LAYERS), in
+               bf16 with seeded random weights: prefill of 4 x 4096 tokens
                cold, then warm with every launch counter zeroed (rwkv6
-               32 launches, by path all on the tensor cores,
+               8 launches, by path all on the tensor cores,
                flash_attention none), peak memory; the
                logits against the same prefill with the plain versions
                swapped in (LOGIT_BOUND), and as controls the logits
@@ -201,13 +201,37 @@ wrong or if there is no CUDA device. Phases:
                kernel; that prefill's logits within F32_LOGIT_BOUND of
                the plain-swapped one's). Serving itself runs no kernel:
                the engine decodes step by step in PyTorch;
-  L gemma2-27b the same for Gemma-2 27B (46 layers) at 1 x 8192 tokens,
-               so that the 4096 window masks: flash_attention 46
-               launches, all on its tensor-core path, a record for a
-               local and a global layer (bounds by the tensor cores'
-               products and by the SFU's exponentials), with
-               scaled_dot_product_attention without the softcap timed
-               as a yardstick.
+  S train      training RWKV-6 7B at full width, 2 of 32 layers, on
+               TokenPipeline's batches of 4 x 4096 tokens built on the
+               card from gen_corpus (the stream bit-equal to the CPU's;
+               the join kernels its query launched): make_train_step
+               (AdamW, as train_step_fn picks it, lr 1e-3, remat "dots"),
+               a cold step, then 3 warm steps with every counter zeroed
+               (rwkv6 twice a layer a step, rwkv6_bwd once), their time
+               and peak memory; two steps on one batch (the loss falls);
+               the gradients against the same step's with the plain
+               versions swapped in (TRAIN_GRAD_BOUND per leaf), the
+               input projections' non-zero; microbatches=2 against none
+               (loss and gradient norm); the rwkv6 backward at its
+               captured arguments within rwkv6_bwd_bound of its plain
+               version, two launches bit-identical, timed beside its
+               bound, and its controls (the state not carried back
+               across chunks: beyond the bound; decays set to 1e-14: dw
+               0 there); a profiled warm step;
+  L gemma2-27b the same as K for Gemma-2 27B, 8 of its 46 layers
+               (L_LAYERS), at 1 x 8192 tokens, so that the 4096 window
+               masks: flash_attention 8 launches, all on its tensor-core
+               path, a record for a local and a global layer (bounds by
+               the tensor cores' products and by the SFU's
+               exponentials), with scaled_dot_product_attention without
+               the softcap timed as a yardstick;
+  R train      the same as S for Gemma-2 27B, 2 of 46 layers (one local,
+               one global), 1 x 8192 tokens: flash_attention twice a
+               layer a step, flash_attention_bwd once, a backward record
+               at a local and a global layer within attention_bwd_bound,
+               SDPA's backward without the softcap as yardstick, and the
+               controls (dk, dv without the GQA sum; the softcap's
+               factor dropped) beyond the bound.
   N whisper    Whisper base, the same at full depth (6 encoder and 6
                decoder layers) over B = 8 x 1500 seeded N(0, 1) encoder
                frames and a 448-token decoder prompt: flash_attention 18
@@ -243,7 +267,8 @@ decode kernels with D's launch counts, bitunpack's from D0 since no
 column of this data picks bitpack, rle_expand also at one run; F's
 segment_sum_first, member_mask, pack_rows and unpack_cols;
 G's replicate_scatter; J's segment_reduce at (a) and at (b) with d = 4;
-K's rwkv6; L's flash_attention at a local and a global layer; N's at
+K's rwkv6; S's rwkv6_bwd; L's flash_attention at a local and a global
+layer; R's flash_attention_bwd at a local and a global layer; N's at
 an encoder, a decoder and a cross-attention layer, O's at a local
 layer, P's and Q's at a global layer; each with the library call's
 device time where there is one, and with its path where it has one),
@@ -281,6 +306,20 @@ SCALE_F = 7_500_000            # orders in phases F and G: TPC-H SF5
 SCALE_F_OFF = 1_500_000        # orders of F's `off` plan: TPC-H SF1
 SCALE_H = 1_500_000            # orders of phase H's Fig. 7 grid: TPC-H SF1
 SCALE_H_STD = 7_500_000        # orders of H's n2n L2 standard route: SF5
+K_LAYERS = 8                   # RWKV-6 7B's prefill in K: 8 of 32 layers
+L_LAYERS = 8                   # Gemma-2 27B's in L: 8 of 46 (4 local, 4
+#                                global); cut for the smoke's time when R
+#                                and S came (PERF.md, section 4)
+PROFILE_TRIES = 2              # profiler sessions at most per profile, and
+NQ_PROFILE_TRIES = 1           # in N-Q's prefill and serving profiles: a
+LM_REC_PROFILE_TRIES = 4       # session that loses device records is
+#                                repeated with 1 s (then 2 s, 3 s) of idle
+#                                time on either side, and with four
+#                                sessions 27 profiles of one run took
+#                                three, 188 s of idle time in all (PERF.md,
+#                                section 6); the LM kernel records of K, L,
+#                                N-Q, R and S (forward and backward) keep
+#                                four sessions for their device times
 #                                (SF10 needs about 134 GiB: PERF.md, section 4)
 BIO_SAMPLES = 10               # phase I: cut from 1,000 (PERF.md, section 4)
 BIO_GENES = 20_000             # phase I: about the human protein-coding genes
@@ -335,6 +374,14 @@ KERNELS = {
     "rwkv6": dict(
         source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:77"),
+    # the backward kernels replace no TPU kernel: the reference takes
+    # jax.grad of these XLA functions
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/layers.py:80"),
+    "rwkv6_bwd": dict(
+        source="src/repro_torch/kernels/csrc/rwkv6_bwd.cu",
+        replaces="src/repro/models/ssm.py:26"),
 }
 JOIN_KERNELS = ("segment_sum_first", "merge_positions", "gather_rows")
 DECODE_KERNELS = ("rle_expand", "delta_unpack", "bitunpack", "dict_gather")
@@ -906,7 +953,7 @@ def profiled(run, iters: int = 1, pad_s: float = 0.0):
     return records, complete
 
 
-def complete_profile(run, iters: int = 1, tries: int = 4):
+def complete_profile(run, iters: int = 1, tries: int = PROFILE_TRIES):
     """(device records, complete, sessions) of the first complete
     ``profiled`` session, else of the last of ``tries``. A session of
     the profiler can lose device records, more of them the longer the
@@ -919,7 +966,7 @@ def complete_profile(run, iters: int = 1, tries: int = 4):
     return records, complete, attempt + 1
 
 
-def device_ms(fns: list, iters: list, tries: int = 4):
+def device_ms(fns: list, iters: list, tries: int = PROFILE_TRIES):
     """Device time per call of each function of ``fns`` (None where a
     function is None): the time of every kernel and copy that it puts on
     the card, summed by ``torch.profiler`` over its ``iters`` calls. All
@@ -1100,11 +1147,12 @@ def measure_kernels(captured: dict, launches: dict, tag: str,
     return recs
 
 
-def profile_run(run, tag: str, top: int = 10) -> None:
+def profile_run(run, tag: str, top: int = 10,
+                tries: int = PROFILE_TRIES) -> None:
     """One more warm run under ``torch.profiler``: the wall time, the
     device's busy and idle share, and the kernels that took the most
     device time (where the time goes), from a complete profile where
-    one of three sessions gives one (``complete_profile``)."""
+    one of PROFILE_TRIES sessions gives one (``complete_profile``)."""
     wall = []
 
     def timed():
@@ -1113,7 +1161,7 @@ def profile_run(run, tag: str, top: int = 10) -> None:
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
 
-    records, complete, sessions = complete_profile(timed)
+    records, complete, sessions = complete_profile(timed, tries=tries)
     wall_ms = wall[-1]
     by_name: dict = {}
     for e in records:
@@ -4189,7 +4237,8 @@ LM_CONTROLS = {
 
 
 def measure_lm_kernel(name: str, args: tuple, kw: dict, launches: int,
-                      tag: str, label: str) -> dict:
+                      tag: str, label: str,
+                      tries: int = LM_REC_PROFILE_TRIES) -> dict:
     """One JSON record of an LM kernel at its captured arguments: held to
     its bound against the plain version (two launches bit-identical),
     timed by CUDA events and by the profiler beside the plain version,
@@ -4200,7 +4249,7 @@ def measure_lm_kernel(name: str, args: tuple, kw: dict, launches: int,
     # host-paced, and too many launches for a complete profile
     (dev_ms, plain_dev, lib_dev), dev_s = device_ms(
         [kern, plain if name == "flash_attention" else None, library],
-        [3, 1, 3])
+        [3, 1, 3], tries=tries)
     meta = KERNELS[name]
     rec = dict(name=name, route="cuda", source=meta["source"],
                replaces=meta["replaces"], launches=launches,
@@ -4228,6 +4277,296 @@ def measure_lm_kernel(name: str, args: tuple, kw: dict, launches: int,
         f"{bound_ms / rec['ms']:.1%} of bound; path "
         f"{rec['path']}), library {lib}({lib_label}); "
         f"{launches} launches in the warm prefill")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (phases R and S)
+# ---------------------------------------------------------------------------
+
+def attention_bwd_terms(q, k, v, o, lse, do, causal=True, window=None,
+                        softcap=None, scale=None, drop_factor=False):
+    """For each (batch row, KV head): (b, hs, j, P, dS, E_dS, eps_P) of
+    ``ref.attention_bwd_ref``'s arithmetic in f32 on the card, with
+    E_dS the first-order bound on one f32 evaluation's error in each dS
+    term (``attention_bwd_bound``). ``drop_factor``: dS without the
+    softcap's factor (1 - (S / c)^2), a control."""
+    from repro_torch.kernels import ref as R
+    B, H, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    G = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    u = U_F32
+    mask = R._attention_mask(Sq, Sk, causal, window, q.device)
+    delta = (do.float() * o.float()).sum(-1)
+    qn, kn = q.float().norm(dim=-1), k.float().norm(dim=-1)
+    dn, on, vn = (do.float().norm(dim=-1), o.float().norm(dim=-1),
+                  v.float().norm(dim=-1))
+    for b in range(B):
+        for j in range(Hkv):
+            hs = slice(j * G, (j + 1) * G)
+            s, t = R._scores(q[b, hs], k[b, j], mask, scale, softcap)
+            p = torch.exp(s - lse[b, hs, :, None])
+            dp = torch.matmul(do[b, hs].float(), v[b, j].float().t())
+            dd = dp - delta[b, hs, :, None]
+            f = torch.ones_like(s) if t is None or drop_factor else 1 - t * t
+            ds = p * dd * f
+            # the score: a D-term dot product, the scale and (with a
+            # softcap) tanh and two more ops: in S, and through f
+            sig = u * (D * scale * qn[b, hs, :, None] * kn[b, j][None, None]
+                       + 8 * s.abs())
+            eps_p = sig + u * (s - lse[b, hs, :, None]).abs() + 2 * u
+            sig_dd = u * dn[b, hs, :, None] * (
+                D * vn[b, j][None, None] + D * on[b, hs, :, None]) \
+                + u * dd.abs()
+            df = (2 * t.abs() * (sig / softcap + 2 * u * t.abs()) + u
+                  if t is not None and not drop_factor else 0.0)
+            e = p * dd.abs() * f.abs() * (eps_p + 3 * u) \
+                + p * f.abs() * sig_dd + p * dd.abs() * df
+            e = torch.where(mask, e, torch.zeros_like(e))
+            yield b, hs, j, p, ds, e, eps_p
+            del s, t, p, dp, dd, f, ds, sig, eps_p, sig_dd, e
+
+
+def attention_bwd_bound(q, k, v, o, lse, do, causal=True, window=None,
+                        softcap=None, scale=None) -> tuple:
+    """Elementwise bounds on |kernel - plain| of (dq, dk, dv), first
+    order, for two f32 evaluations of the same inputs (each within half
+    of it). Per unmasked pair, one evaluation errs in the score s by at
+    most u (D scale ||q|| ||k|| + 8 |s|) (the dot product, the scale,
+    the softcap's tanh), in P = exp(S - lse) relatively by that, u |S -
+    lse| and 2 u, in dP - Delta by u ||dO|| D (||v|| + ||o||) (two
+    D-term dot products), and in the softcap's factor through t; E_dS
+    sums these, weighted, per dS term. Then dq = scale sum_k dS k adds
+    E_dS |k| and the f32 sum of Sk terms (Sk + 1) u sum |dS| |k|; dk
+    the same over the G Sq query rows of a KV head; dv = sum P dO adds
+    eps_P P |dO| and (G Sq + 1) u sum P |dO|. Both versions sum their
+    products in sequence (the kernel a key or query tile at a time; a
+    GEMM along its reduction), so the sums' terms are linear in their
+    length."""
+    B, H, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    G = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    u = U_F32
+    bq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    bk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    bv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    for b, hs, j, p, ds, e, eps_p in attention_bwd_terms(
+            q, k, v, o, lse, do, causal, window, softcap, scale):
+        ka, qa = k[b, j].float().abs(), q[b, hs].float().abs()
+        dsa = ds.abs()
+        bq[b, hs] = 2 * scale * (torch.matmul(e, ka)
+                                 + (Sk + 1) * u * torch.matmul(dsa, ka))
+        bk[b, j] = 2 * scale * (
+            torch.einsum("gqk,gqd->kd", e, qa)
+            + (G * Sq + 1) * u * torch.einsum("gqk,gqd->kd", dsa, qa))
+        doa = do[b, hs].float().abs()
+        bv[b, j] = 2 * (torch.einsum("gqk,gqd->kd", eps_p * p, doa)
+                        + (G * Sq + 1) * u * torch.einsum(
+                            "gqk,gqd->kd", p, doa))
+    return bq, bk, bv
+
+
+def attention_bwd_no_softcap_factor(q, k, v, o, lse, do, causal=True,
+                                    window=None, softcap=None, scale=None):
+    """A control: the backward with dS = P (dP - Delta), the softcap's
+    factor (1 - (S / c)^2) dropped, in f32 (the plain formulas)."""
+    B, H, Sq, D = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    for b, hs, j, p, ds, _, _ in attention_bwd_terms(
+            q, k, v, o, lse, do, causal, window, softcap, scale,
+            drop_factor=True):
+        dq[b, hs] = (torch.matmul(ds, k[b, j].float()) * scale).to(q.dtype)
+        dk[b, j] = (torch.einsum("gqk,gqd->kd", ds, q[b, hs].float())
+                    * scale).to(k.dtype)
+        dv[b, j] = torch.einsum("gqk,gqd->kd", p, do[b, hs].float()).to(
+            v.dtype)
+    return dq, dk, dv
+
+
+def rwkv6_bwd_bound(r, k, v, w, u, do, chunk: int) -> tuple:
+    """Elementwise bounds on |kernel - plain| of (dr, dk, dv, dw, du),
+    first order: in either version every term of an output passes
+    through at most 2 T steps of the two recurrences (S forward, G
+    backward: one rounding each per step), a V- or K-term sum and a few
+    more ops, and du sums T steps and then B rows: a relative error of
+    u (2 T + K + V + B + 16) per evaluation, twice that between two,
+    times M, the plain backward run on |r|, |k|, |v|, |u|, |do| (the
+    sum of the terms' magnitudes)."""
+    from repro_torch.kernels import ref as R
+    B, H, T, K = r.shape
+    V = v.shape[3]
+    rel = 2 * U_F32 * (2 * T + K + V + B + 16)
+    M = R.rwkv6_bwd_ref(r.float().abs(), k.float().abs(), v.float().abs(),
+                        w.float(), u.float().abs(), do.float().abs(),
+                        chunk)
+    return tuple(rel * m.double() for m in M)
+
+
+def lm_bwd_fns(name: str, args: tuple, kw: dict):
+    """(kernel, plain version, library call or None, library label, bound
+    ms, 'bytes' or 'operations', bound note, tolerances) for one
+    backward kernel at its captured arguments. Bound: the larger of the
+    bytes (inputs read once, gradients written once; not rwkv6's chunk
+    states, the kernel's own scratch) over 3.35 TB/s and the operations:
+    for attention
+    5 products of 2 D flops per unmasked pair and head (S, dP, dq, dk,
+    dv; the kernels form S and dP twice, not counted) at 989 TFLOP/s in
+    bf16 (495 in f32) and one exp per pair on the SFU; for RWKV-6 twice
+    the forward's chunked products at TF32's 495 TFLOP/s."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import rwkv6_scan as RW
+    if name == "flash_attention_bwd":
+        q, k, v, o, lse, do = (a.contiguous() for a in args)
+        causal, window = kw.get("causal", True), kw.get("window")
+        softcap, scale = kw.get("softcap"), kw.get("scale")
+        B, H, Sq, D = q.shape
+        Hkv, Sk = k.shape[1], k.shape[2]
+        pairs, _, exps = attention_work(q, k, causal, window)
+        flops = 10 * D * pairs
+        peak = 989e12 if q.dtype == torch.bfloat16 else 495e12
+        nbytes = q.element_size() * (3 * q.numel() + 2 * k.numel()) * 2 \
+            - q.element_size() * q.numel() + 4 * lse.numel()
+        kern = lambda: FA.flash_attention_bwd_cuda(  # noqa: E731
+            q, k, v, o, lse, do, causal, window, softcap, scale)
+        plain = lambda: R.attention_bwd_ref(  # noqa: E731
+            q, k, v, o, lse, do, causal, window, softcap, scale)
+        lib = attention_library_bwd(q, k, v, do, causal, window, scale)
+        label = ("scaled_dot_product_attention's backward on the same shape "
+                 "and masks without the softcap (a yardstick: no PyTorch "
+                 "call has the softcap)")
+        bound_ops = max(flops / peak, exps / SFU_PER_S)
+        tols = attention_bwd_bound(q, k, v, o, lse, do, causal, window,
+                                   softcap, scale)
+        note = (f"{pairs} unmasked pairs, {flops / 1e9:.1f} GFLOP: "
+                f"{flops / peak * 1e3:.4f} ms on the tensor cores, "
+                f"{exps / 1e9:.3f}G exponentials: "
+                f"{exps / SFU_PER_S * 1e3:.4f} ms on the SFU")
+    else:
+        r, k, v, w, u, do = (a.contiguous() for a in args)
+        chunk = int(kw.get("chunk", 64))
+        B, H, T, K = r.shape
+        V = v.shape[3]
+        flops = 2 * B * H * rwkv6_work(T, K, V, chunk)[0]
+        states = 4 * B * H * (-(-T // min(chunk, T))) * K * V
+        nbytes = r.element_size() * 2 * (3 * r.numel() + 2 * v.numel()) \
+            - r.element_size() * v.numel() + 4 * u.numel()
+        kern = lambda: RW.rwkv6_bwd_cuda(r, k, v, w, u, do,  # noqa: E731
+                                         chunk)
+        plain = lambda: R.rwkv6_bwd_ref(r, k, v, w, u, do,  # noqa: E731
+                                        chunk)
+        lib, label = None, ("none: no PyTorch call computes the RWKV-6 "
+                            "recurrence or its gradient")
+        bound_ops = flops / 495e12
+        tols = rwkv6_bwd_bound(r, k, v, w, u, do, chunk)
+        note = (f"twice the forward's chunked products: {flops / 1e9:.1f} "
+                f"GFLOP, {bound_ops * 1e3:.4f} ms on the tensor cores in "
+                f"TF32; the kernel's chunk-start states ({states / 1e6:.0f} "
+                f"MB, written and read back) are its own scratch, not in "
+                f"the bound")
+    bound_bytes = nbytes / HBM_BYTES_PER_S
+    by = "operations" if bound_ops >= bound_bytes else "bytes"
+    return (kern, plain, lib, label, max(bound_ops, bound_bytes) * 1e3, by,
+            note, tols)
+
+
+def attention_library_bwd(q, k, v, do, causal, window, scale):
+    """``scaled_dot_product_attention``'s backward (one autograd call) on
+    the same shape and masks, without the softcap; its forward is run
+    once, outside the timing."""
+    Sq, Sk = q.shape[2], k.shape[2]
+    mask = None
+    if window:
+        rr = torch.arange(Sq, device=q.device)[:, None]
+        cc = torch.arange(Sk, device=q.device)[None, :]
+        mask = cc > rr - window
+        if causal:
+            mask &= cc <= rr
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, is_causal=bool(causal and mask is None),
+        scale=scale, enable_gqa=k.shape[1] != q.shape[1])
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                       retain_graph=True)
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def check_lm_bwd(name: str, args: tuple, kw: dict) -> tuple:
+    """The backward kernel twice (bit-identical) and its plain version on
+    the same inputs, each gradient within its stated bound (+1 bf16 ulp
+    in bf16). Returns (max |err|, the largest share of a bound, fns)."""
+    fns = lm_bwd_fns(name, args, kw)
+    kern, plain, tols = fns[0], fns[1], fns[7]
+    a, b = kern(), kern()
+    want = plain()
+    torch.cuda.synchronize()
+    assert all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b)), \
+        f"{name}: two launches differ"
+    shares = [within(x, y, t) for x, y, t in zip(a, want, tols)]
+    err = max(float((x.double() - y.double()).abs().max())
+              for x, y in zip(a, want))
+    del a, b, want
+    return err, max(shares), fns
+
+
+def beyond(got: tuple, want: tuple, tols: tuple) -> float:
+    """The largest share of the bound by which ``got`` misses ``want``
+    (> 1: the difference is beyond the bound somewhere)."""
+    worst = 0.0
+    for x, y, t in zip(got, want, tols):
+        err = (x.double() - y.double()).abs()
+        allowed = torch.as_tensor(t, dtype=torch.float64, device=x.device)
+        if x.dtype == torch.bfloat16:
+            allowed = allowed + bf16_ulp(torch.maximum(x.float().abs(),
+                                                       y.float().abs()))
+        worst = max(worst, float((err / allowed.clamp(min=1e-300)).max()))
+    return worst
+
+
+def measure_lm_bwd(name: str, args: tuple, kw: dict, launches: int,
+                   tag: str, label: str) -> dict:
+    """One JSON record of a backward kernel at its captured arguments:
+    within its bound of the plain version, two launches bit-identical,
+    timed by CUDA events and the profiler beside the plain version, the
+    library yardstick and the bound."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RW
+    err, share, fns = check_lm_bwd(name, args, kw)
+    kern, plain, library, lib_label, bound_ms, by, note, _ = fns
+    # rwkv6's plain backward is a host-paced loop over T: not profiled
+    (dev_ms, plain_dev, lib_dev), dev_s = device_ms(
+        [kern, plain if name == "flash_attention_bwd" else None, library],
+        [2, 1, 2], tries=LM_REC_PROFILE_TRIES)
+    meta = KERNELS[name]
+    rec = dict(name=name, route="cuda", source=meta["source"],
+               replaces=meta["replaces"], launches=launches,
+               max_abs_err=err, ms=time_ms(kern, iters=3),
+               plain_ms=time_ms(plain, iters=1), device_ms=dev_ms,
+               plain_device_ms=plain_dev, bound_ms=bound_ms, bound_by=by,
+               library_ms=time_ms(library, iters=3) if library else None,
+               library_device_ms=lib_dev, shape=label,
+               path=FA.BWD_PATH if name == "flash_attention_bwd"
+               else RW.BWD_PATH)
+    shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+    lib = (f"{_ms(rec['library_ms'])} ms, {_ms(lib_dev)} on the device, "
+           if library else "")
+    log(f"  [{tag}] {name} ({label}) at {shapes} {args[0].dtype}, "
+        f"{ {k: v for k, v in kw.items() if v is not None} }: every "
+        f"gradient within the bound of the plain version ({share:.3g} of "
+        f"it, max |err| {err:.3g}), two launches bit-identical; kernel "
+        f"{rec['ms']:.4f} ms ({_ms(dev_ms)} on the device, profile session "
+        f"{dev_s}), plain {rec['plain_ms']:.4f} ms ({_ms(plain_dev)} on the "
+        f"device), bound {bound_ms:.4f} ms by {by} ({note}; "
+        f"{bound_ms / rec['ms']:.1%} of bound; path {rec['path']}), library "
+        f"{lib}({lib_label}); {launches} launches in the warm steps")
     return rec
 
 
@@ -4297,7 +4636,8 @@ def greedy_by_steps(cfg, params, reqs: list, max_len: int, dev,
     return torch.stack(outs, 1).tolist()
 
 
-def serve_bf16(tag: str, cfg, params, seed: int, dev) -> None:
+def serve_bf16(tag: str, cfg, params, seed: int, dev,
+               tries: int = PROFILE_TRIES) -> None:
     """``ServeEngine.generate`` at full width in bf16: wall time, decode
     tokens per second (prompt steps and new tokens, all B rows, over the
     wall time) and peak memory; then one decode step profiled."""
@@ -4333,7 +4673,7 @@ def serve_bf16(tag: str, cfg, params, seed: int, dev) -> None:
     caches = T.init_cache(cfg, len(reqs), 128, device=dev)
     tok = torch.zeros(len(reqs), dtype=torch.int64, device=dev)
     profile_run(lambda: T.decode_step(cfg, params, caches, tok, 64),
-                f"{tag} decode step (batch 4, position 64)")
+                f"{tag} decode step (batch 4, position 64)", tries=tries)
 
 
 def serve_cross(tag: str, cfg, params, frames, seed: int, dev) -> None:
@@ -4548,7 +4888,7 @@ def mamba_share(tag: str, run) -> None:
 def phase_lm(tag: str, arch: str, B: int, S: int, kernel: str,
              expect: int, seed: int, dev, n_layers: int = None,
              controls: tuple = None, must_see: tuple = (),
-             f32_layers: int = 2) -> list:
+             f32_layers: int = 2, tries: int = PROFILE_TRIES) -> list:
     """Phases K, L and N-Q: ``arch`` at full width in bf16 with seeded
     random weights, at full depth or cut to ``n_layers``: ``prefill`` of
     B x S random tokens (and, for Whisper, B x ENC_FRAMES frames) cold,
@@ -4682,19 +5022,452 @@ def phase_lm(tag: str, arch: str, B: int, S: int, kernel: str,
     recs = []
     for (name, window, causal, same), (args, kw) in sorted(
             calls.items(), key=lambda kv: str(kv[0])):
-        recs.append(measure_lm_kernel(name, args, kw, counts[name], tag,
-                                      call_label(name, window, causal,
-                                                 same)))
+        recs.append(measure_lm_kernel(
+            name, args, kw, counts[name], tag,
+            call_label(name, window, causal, same)))
     del calls
     torch.cuda.empty_cache()
     profile_run(lambda: T.prefill(cfg, params, tokens, **extra),
-                f"{tag} prefill")
-    serve_bf16(tag, cfg, params, seed, dev)
+                f"{tag} prefill", tries=tries)
+    serve_bf16(tag, cfg, params, seed, dev, tries=tries)
     if cfg.enc_layers:
         serve_cross(tag, cfg, params, extra["enc_embeds"], seed, dev)
     del params, tokens, extra
     torch.cuda.empty_cache()
     serve_f32(tag, cfg, kernel, seed, dev, n_layers=f32_layers)
+    torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phases R and S: training
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAD_BOUND = 0.04        # |grad - plain-swapped grad| / max |plain
+#   grad|, a leaf at a time, in bf16 at 2 layers: no bound derived
+#   through two layers and the head; set at 3.7 x the largest reading
+#   (the tied embedding's 0.0108 at S and 0.00843 at R, the same in every
+#   run: the kernels are deterministic). A backward fault put into every
+#   layer of the step lands beyond it (TRAIN_CONTROLS); the kernels at
+#   their captured arguments hold the rounding bound
+MB_LOSS_REL = 2.0 ** -16       # microbatches 2 against 1, the same rows:
+MB_GNORM_REL = 2.0 ** -10      # the loss (readings 0 at R, 6.28e-8 at S)
+#   and the gradient norm (4.59e-5 at R, 7.24e-6 at S) differ by other
+#   GEMM tilings and the f32 sum of the two microbatches' grads; bounds
+#   240 x and 21 x the largest reading. One microbatch taken twice (or
+#   half the batch dropped) lands beyond them: the step's own control
+TRAIN_LR = 1e-3                # warmup 1: the steps move bf16 weights
+
+
+@contextlib.contextmanager
+def plain_kernels_swapped():
+    """The LM kernels' entry points (the forward with its lse, and the
+    backward) replaced by their plain versions on the card while active:
+    the autograd Functions of ``kernels.ops`` then run
+    ``ref.attention_ref``/``attention_bwd_ref`` and
+    ``ref.rwkv6_ref``/``rwkv6_bwd_ref``. The script's own switch."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import rwkv6_scan as RW
+    orig = (FA.flash_attention_cuda, FA.flash_attention_bwd_cuda,
+            RW.rwkv6_cuda, RW.rwkv6_bwd_cuda)
+    FA.flash_attention_cuda = (
+        lambda q, k, v, causal=True, window=None, softcap=None, scale=None,
+        with_lse=False: R.attention_ref(q, k, v, causal, window, softcap,
+                                        scale, with_lse=with_lse))
+    FA.flash_attention_bwd_cuda = R.attention_bwd_ref
+    RW.rwkv6_cuda = lambda r, k, v, w, u, chunk=64: R.rwkv6_ref(r, k, v, w, u)
+    RW.rwkv6_bwd_cuda = R.rwkv6_bwd_ref
+    try:
+        yield
+    finally:
+        (FA.flash_attention_cuda, FA.flash_attention_bwd_cuda,
+         RW.rwkv6_cuda, RW.rwkv6_bwd_cuda) = orig
+
+
+@contextlib.contextmanager
+def capture_bwd_calls():
+    """While active, keeps (in the dict it yields) the arguments of the
+    first backward kernel call of each kind (flash_attention's by window:
+    a local and a global layer; rwkv6's first)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RW
+    calls, orig = {}, (FA.flash_attention_bwd_cuda, RW.rwkv6_bwd_cuda)
+
+    def fa(q, k, v, o, lse, do, causal=True, window=None, softcap=None,
+           scale=None):
+        calls.setdefault(("flash_attention_bwd", window), (
+            tuple(a.detach() for a in (q, k, v, o, lse, do)),
+            dict(causal=causal, window=window, softcap=softcap,
+                 scale=scale)))
+        return orig[0](q, k, v, o, lse, do, causal, window, softcap, scale)
+
+    def rw(r, k, v, w, u, do, chunk=64):
+        calls.setdefault(("rwkv6_bwd", None), (
+            tuple(a.detach() for a in (r, k, v, w, u, do)),
+            dict(chunk=chunk)))
+        return orig[1](r, k, v, w, u, do, chunk)
+
+    FA.flash_attention_bwd_cuda, RW.rwkv6_bwd_cuda = fa, rw
+    try:
+        yield calls
+    finally:
+        FA.flash_attention_bwd_cuda, RW.rwkv6_bwd_cuda = orig
+
+
+def sync_s(t0: float) -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def train_data(cfg, B: int, S: int, seed: int, dev, tag: str):
+    """The token stream of ``TokenPipeline`` on the card over
+    ``gen_corpus(vocab=cfg.vocab)``, sized to hold max(B, 2) x S + 1
+    tokens without tiling; the same stream built on the CPU (the join
+    kernels' plain versions) bit for bit; the kernels its query
+    launched."""
+    from repro_torch.data.generators import gen_corpus
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops as kops
+    need = max(B, 2) * S + 1
+    n_docs = need // 12 + 64            # about 18.8 tokens a document
+    corpus = gen_corpus(n_docs=n_docs, vocab=cfg.vocab, seed=seed)
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pipe = TokenPipeline(batch=B, seq_len=S, device=dev).build(corpus)
+    build_s = sync_s(t0)
+    launched = {k: v for k, v in kops.launch_counts().items() if v}
+    plain = TokenPipeline(batch=B, seq_len=S, device="cpu").build(corpus)
+    assert torch.equal(plain.stream, pipe.stream.cpu()), \
+        "the stream on the card differs from the CPU's"
+    assert len(pipe.stream) >= need, (len(pipe.stream), need)
+    assert pipe.stream.dtype == torch.int32 and \
+        pipe.stream.device.type == dev.type
+    assert launched.get("merge_positions", 0) > 0 and \
+        launched.get("gather_rows", 0) > 0, launched
+    log(f"[{tag} data] TokenPipeline on the card over gen_corpus({n_docs} "
+        f"documents, vocab {cfg.vocab}): {len(pipe.stream)} tokens (>= "
+        f"{need}: no tiling), built in {build_s:.2f} s; its query launched "
+        f"{launched}; bit-equal to the stream built on the CPU")
+    return pipe
+
+
+def nonzero_input_grads(cfg, grads, kernel: str) -> str:
+    """The input projections before each kernel (attention's wq, wk, wv;
+    RWKV's wr, wk, wv, the decay LoRA and u) have non-zero gradients in
+    every layer: the kernels' backward reached them."""
+    names = (("wq", "wk", "wv") if kernel == "flash_attention"
+             else ("wr", "wk", "wv", "wa", "wb", "w0", "u"))
+    seen = []
+    for pos, blk in grads["blocks"].items():
+        for b in range(cfg.n_blocks):
+            for n in names:
+                g = float(blk[n][b].float().abs().max())
+                assert g > 0, (pos, b, n)
+                seen.append(f"{n}{pos}.{b} {g:.3g}")
+    return ", ".join(seen)
+
+
+def reckoned_peak_gb(cfg, params, state, B: int, S: int) -> str:
+    """A reckoning of a step's peak from the shapes: weights, their
+    gradients, the optimizer's state, the loss's f32 head and its
+    gradient, and one chunk's logits."""
+    from repro_torch import tree as TR
+    pb = sum(t.numel() * t.element_size() for t in TR.leaves(params))
+    sb = sum(t.numel() * t.element_size() for t in TR.leaves(state))
+    head = cfg.vocab * cfg.d_model * 4 * 2      # f32 copy and its grad
+    chunk = min(cfg.seq_chunk_loss, S)
+    logits = B * chunk * cfg.vocab * 4 * 3      # a chunk's logits, twice
+    tot = 2 * pb + sb + head + logits
+    return (f"params {pb / 1e9:.2f} + grads {pb / 1e9:.2f} + optimizer "
+            f"state {sb / 1e9:.2f} + the f32 head and its grad "
+            f"{head / 1e9:.2f} + one loss chunk {logits / 1e9:.2f} = "
+            f"{tot / 1e9:.2f} GB before activations")
+
+
+def attention_bwd_controls(tag: str, args: tuple, kw: dict) -> None:
+    """The two faults of a flash_attention backward, each put into it at
+    the captured arguments: dk and dv without the GQA sum (the kernel
+    over the KV heads repeated to the query heads, one query head of
+    each group kept), and the softcap's factor dropped (the plain
+    formulas without it). Each must lie beyond the bound."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref as R
+    want = R.attention_bwd_ref(*args, **kw)
+    tols = attention_bwd_bound(*args, **kw)
+    _, dk, dv = attention_bwd_no_gqa_sum(FA.flash_attention_bwd_cuda,
+                                         *args, **kw)
+    gqa = beyond((want[0], dk, dv), want, tols)
+    del dk, dv
+    cap = beyond(attention_bwd_no_softcap_factor(*args, **kw), want, tols)
+    log(f"  [{tag}] controls in the backward ({kw.get('window')} window): "
+        f"dk, dv without the GQA sum {gqa:.3g} x the bound; the softcap's "
+        f"factor dropped {cap:.3g} x")
+    assert gqa > 1 and cap > 1, (gqa, cap)
+
+
+def rwkv6_bwd_controls(tag: str, args: tuple, kw: dict) -> None:
+    """At the captured arguments: the kernel run a chunk at a time (no
+    state carried back across chunks) lies beyond the bound; and with
+    one decay in seven set to 1e-14 (below the reference's 1e-12 clamp)
+    dw is 0 exactly there, the rest within the bound."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import rwkv6_scan as RW
+    r, k, v, w, u, do = args
+    C = kw["chunk"]
+    T = r.shape[2]
+    want = R.rwkv6_bwd_ref(*args, C)
+    tols = rwkv6_bwd_bound(*args, C)
+    parts = [RW.rwkv6_bwd_cuda(*(x[:, :, s:s + C].contiguous()
+                                 for x in (r, k, v, w)), u,
+                               do[:, :, s:s + C].contiguous(), C)
+             for s in range(0, T, C)]
+    bad = tuple(torch.cat([p[i] for p in parts], 2) for i in range(4)) + (
+        sum(p[4] for p in parts),)
+    carried = beyond(bad, want, tols)
+    del parts, bad, want, tols
+    w2 = w.clone()
+    w2[:, :, ::7, ::3] = 1e-14
+    args2 = (r, k, v, w2, u, do)
+    err, share, _ = check_lm_bwd("rwkv6_bwd", args2, kw)
+    dw = RW.rwkv6_bwd_cuda(*args2, C)[3]
+    cut = w2 < 1e-12
+    assert bool((dw[cut] == 0).all()), "a decay below 1e-12 got a gradient"
+    log(f"  [{tag}] controls in the backward: the state not carried back "
+        f"across chunks {carried:.3g} x the bound; with {int(cut.sum())} "
+        f"decays set to 1e-14: dw 0 at every one of them, the rest within "
+        f"the bound ({share:.3g} of it), two launches bit-identical")
+    assert carried > 1, carried
+
+
+def worst_leaf(got, want) -> tuple:
+    """(the largest |got - want| / max |want| over the leaves of two
+    gradient trees, the leaf's path)."""
+    from repro_torch import tree as TR
+    worst, where = 0.0, ""
+    for (path, a), b in zip(TR.flatten(got), TR.leaves(want)):
+        rel = float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp(min=1e-30))
+        if rel > worst:
+            worst, where = rel, path
+    return worst, where
+
+
+def attention_bwd_no_gqa_sum(fn, q, k, v, o, lse, do, **kw) -> tuple:
+    """The backward ``fn`` with dk and dv without the GQA sum: run over
+    the KV heads repeated to the query heads, one query head of each
+    group kept."""
+    G = q.shape[1] // k.shape[1]
+    kr, vr = (x.repeat_interleave(G, dim=1).contiguous() for x in (k, v))
+    dq, dk, dv = fn(q, kr, vr, o, lse, do, **kw)
+    return dq, dk[:, ::G].contiguous(), dv[:, ::G].contiguous()
+
+
+@contextlib.contextmanager
+def bwd_fault(kernel: str):
+    """While active, the backward kernel of ``kernel`` runs with a fault
+    in every call: flash_attention's dk and dv without the GQA sum;
+    rwkv6's u bonus dropped (u taken as 0 in the backward: dr, dk and dv
+    lose their bonus terms, du does not depend on u). Yields the fault's
+    name."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RW
+    if kernel == "flash_attention":
+        orig = FA.flash_attention_bwd_cuda
+        FA.flash_attention_bwd_cuda = (
+            lambda q, k, v, o, lse, do, causal=True, window=None,
+            softcap=None, scale=None: attention_bwd_no_gqa_sum(
+                orig, q, k, v, o, lse, do, causal=causal, window=window,
+                softcap=softcap, scale=scale))
+        what = "dk, dv without the GQA sum"
+    else:
+        orig = RW.rwkv6_bwd_cuda
+        RW.rwkv6_bwd_cuda = lambda r, k, v, w, u, do, chunk=64: orig(
+            r, k, v, w, torch.zeros_like(u), do, chunk)
+        what = "the u bonus dropped"
+    try:
+        yield what
+    finally:
+        if kernel == "flash_attention":
+            FA.flash_attention_bwd_cuda = orig
+        else:
+            RW.rwkv6_bwd_cuda = orig
+
+
+def phase_train(tag: str, arch: str, B: int, S: int, kernel: str,
+                seed: int, dev, n_layers: int = 2) -> list:
+    """Phases R and S: ``arch`` at full width in bf16 with seeded random
+    weights, cut to ``n_layers``, trained on ``TokenPipeline``'s batches
+    from the card by ``make_train_step`` (the optimizer
+    ``train_step_fn`` picks, at lr TRAIN_LR, donated; the config's
+    remat): a cold step, then 3 warm steps with every launch counter
+    zeroed (the forward kernel launches in every layer twice a step under
+    remat, the backward once), their time and peak memory; 2 steps on
+    one batch, whose loss must fall; the gradients against the same
+    step's with the plain versions swapped in (per leaf within
+    TRAIN_GRAD_BOUND; a fault put into the backward kernel, ``bwd_fault``,
+    beyond it), the input projections' non-zero; a step of 2
+    microbatches against one of none on the same batch (loss and
+    gradient norm; microbatch 0 taken twice beyond the bounds); each
+    backward kernel at its captured arguments
+    (``measure_lm_bwd``) with its controls; one warm step profiled.
+    Returns the backward kernels' records."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optim as O
+    from repro_torch import tree as TR
+    from repro_torch.train.train_loop import (make_loss, make_train_step,
+                                              train_step_fn, value_and_grad)
+    full = get_config(arch)
+    cfg = full.reduced(n_layers=n_layers)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed, device=dev)
+    n_par = sum(t.numel() for t in TR.leaves(params))
+    ocfg = replace(train_step_fn(cfg)[1], lr=TRAIN_LR, warmup=1,
+                   total_steps=100)
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
+        f"(depth cut), d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv_heads} KV) of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}, remat {cfg.remat!r}: {n_par / 1e9:.3f}B "
+        f"parameters ({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB), "
+        f"drawn in {sync_s(t0):.1f} s; optimizer {ocfg.kind} (as "
+        f"train_step_fn picks it), lr {ocfg.lr}, warmup 1")
+    pipe = train_data(cfg, B, S, seed, dev, tag)
+    step = make_train_step(cfg, ocfg, donate=True)
+    state = O.init_state(ocfg, params)
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, pipe.batch_at(0))
+    cold_s = sync_s(t0)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    warm, losses = [], [float(m["loss"])]
+    with capture_bwd_calls() as calls:
+        for c in (1, 2, 3):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, pipe.batch_at(c))
+            losses.append(float(m["loss"]))
+            warm.append(sync_s(t0) * 1e3)
+    counts = kops.launch_counts()
+    paths = dict(FA.PATH_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_mix = cfg.n_layers
+    fwd_per_step = n_mix * (2 if cfg.remat != "none" else 1)
+    log(f"[{tag}] train step B={B} x S={S}: cold {cold_s:.3f} s, warm "
+        f"{', '.join(f'{t:.1f}' for t in warm)} ms "
+        f"({B * S / (sum(warm) / 3) * 1e3:.0f} tokens/s), peak "
+        f"{peak / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} GiB held between "
+        f"steps; reckoned: {reckoned_peak_gb(cfg, params, state, B, S)}); "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; launches in the 3 "
+        f"warm steps: {kernel} {counts[kernel]} (by path {paths if kernel == 'flash_attention' else 'tensor cores'}), "
+        f"{kernel}_bwd {counts[kernel + '_bwd']} (CUDA cores); the "
+        f"pipeline's kernels none (batches are slices of its stream)")
+    assert counts[kernel] == 3 * fwd_per_step, counts
+    assert counts[kernel + "_bwd"] == 3 * n_mix, counts
+    other = "rwkv6" if kernel == "flash_attention" else "flash_attention"
+    assert counts[other] == counts[other + "_bwd"] == 0, counts
+    assert all(np.isfinite(losses))
+    # the loss falls on a repeated batch
+    fixed = pipe.batch_at(4)
+    params, state, m1 = step(params, state, fixed)
+    params, state, m2 = step(params, state, fixed)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    log(f"[{tag}] two steps on one batch: loss {l1:.4f} -> {l2:.4f}")
+    assert l2 < l1, (l1, l2)
+    # gradients against the plain-swapped step's
+    gb = pipe.batch_at(5)
+    lk, gk = value_and_grad(make_loss(cfg), params, gb)
+    t0 = time.perf_counter()
+    with plain_kernels_swapped():
+        lp, gp = value_and_grad(make_loss(cfg), params, gb)
+    plain_s = sync_s(t0)
+    worst, where = worst_leaf(gk, gp)
+    nz = nonzero_input_grads(cfg, gk, kernel)
+    del gk
+    torch.cuda.empty_cache()
+    with bwd_fault(kernel) as fault:
+        _, gf = value_and_grad(make_loss(cfg), params, gb)
+    f_worst, f_where = worst_leaf(gf, gp)
+    log(f"[{tag}] gradients against the plain-swapped step's ({plain_s:.2f}"
+        f" s; loss {float(lk):.6f} against {float(lp):.6f}): worst leaf "
+        f"{where} at {worst:.3g} of its max |grad| (bound "
+        f"{TRAIN_GRAD_BOUND}); control, the backward kernel with {fault} "
+        f"in every layer: worst leaf {f_where} at {f_worst:.3g} "
+        f"({'beyond' if f_worst > TRAIN_GRAD_BOUND else 'WITHIN'} the "
+        f"bound); input projections' max |grad|: {nz}")
+    assert worst <= TRAIN_GRAD_BOUND, (where, worst)
+    assert f_worst > TRAIN_GRAD_BOUND, (fault, f_where, f_worst)
+    del gf, gp
+    torch.cuda.empty_cache()
+    # 2 microbatches against none, the same rows, from the same weights:
+    # a host copy of them goes back in between (the donated steps update
+    # them in place; a second copy of weights and state on the card would
+    # not fit at R). The loss and the gradient norm come before the
+    # update and do not read the optimizer's state.
+    B2 = max(B, 2)
+    pipe2 = TokenPipeline(batch=B2, seq_len=S, device=dev)
+    pipe2.stream = pipe.stream
+    mb_batch = pipe2.batch_at(0)
+    # the control: microbatch 0's rows in place of microbatch 1's, what
+    # a step that took one microbatch twice would see
+    twice = {k: torch.cat([v[:B2 // 2]] * 2) for k, v in mb_batch.items()}
+    saved = TR.tree_map(lambda t: t.to("cpu", copy=True), params)
+    got = {}
+    for key, mb, batch_mb in ((1, 1, mb_batch), (2, 2, mb_batch),
+                              ("twice", 2, twice)):
+        for t, h in zip(TR.leaves(params), TR.leaves(saved)):
+            t.copy_(h)
+        out = make_train_step(cfg, ocfg, microbatches=mb, donate=True)(
+            params, state, batch_mb)
+        got[key] = {k: float(v) for k, v in out[2].items()}
+        del out
+    del saved, twice
+    torch.cuda.empty_cache()
+
+    def rel(key):
+        return (abs(got[key]["loss"] - got[1]["loss"]) / abs(got[1]["loss"]),
+                abs(got[key]["grad_norm"] - got[1]["grad_norm"])
+                / got[1]["grad_norm"])
+
+    (dl, dg), (fl, fg) = rel(2), rel("twice")
+    log(f"[{tag}] microbatches=2 at B={B2}: loss {got[2]['loss']:.6f}, grad "
+        f"norm {got[2]['grad_norm']:.6f}; without: {got[1]['loss']:.6f}, "
+        f"{got[1]['grad_norm']:.6f} (relative {dl:.3g} and {dg:.3g}, bounds "
+        f"{MB_LOSS_REL:.3g} and {MB_GNORM_REL:.3g}); control, microbatch 0 "
+        f"taken twice: {got['twice']['loss']:.6f}, "
+        f"{got['twice']['grad_norm']:.6f} (relative {fl:.3g} and {fg:.3g}: "
+        f"{'beyond' if fl > MB_LOSS_REL or fg > MB_GNORM_REL else 'WITHIN'} "
+        f"the bounds)")
+    assert dl <= MB_LOSS_REL and dg <= MB_GNORM_REL, (dl, dg)
+    assert fl > MB_LOSS_REL or fg > MB_GNORM_REL, (fl, fg)
+    # the backward kernels at their captured arguments
+    recs = []
+    for (name, window), (args, kw) in sorted(calls.items(),
+                                             key=lambda kv: str(kv[0])):
+        if name == "flash_attention_bwd":
+            q, k, v = args[:3]
+            o, lse = FA.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+            assert torch.equal(bits(o), bits(args[3])) and \
+                torch.equal(lse, args[4]), "the forward is not repeatable"
+            label = f"local (window {window}) layer" if window \
+                else "global layer"
+        else:
+            label = "layer 0"
+        recs.append(measure_lm_bwd(name, args, kw, counts[name], tag, label))
+        if name == "flash_attention_bwd":
+            attention_bwd_controls(tag, args, kw)
+        else:
+            rwkv6_bwd_controls(tag, args, kw)
+        torch.cuda.empty_cache()
+    del calls
+    batch = pipe.batch_at(6)
+    profile_run(lambda: step(params, state, batch), f"{tag} train step")
+    del params, state, pipe, pipe2, batch, fixed, gb, mb_batch
     torch.cuda.empty_cache()
     return recs
 
@@ -4708,19 +5481,21 @@ def phases_nq(seed: int, dev, lap) -> list:
     gqa = "query head h reading KV head h % Hkv"
     recs = phase_lm("N whisper-base", "whisper_base", 8, 448,
                     "flash_attention", 18, seed, dev,
-                    controls=(causal_forced,), must_see=(causal_forced,))
+                    controls=(causal_forced,), must_see=(causal_forced,),
+                    tries=NQ_PROFILE_TRIES)
     lap("N")
     recs += phase_lm("O mixtral-8x22b", "mixtral_8x22b", 1, 8192,
                      "flash_attention", 12, seed, dev, n_layers=12,
-                     controls=("the window dropped",))
+                     controls=("the window dropped",),
+                     tries=NQ_PROFILE_TRIES)
     lap("O")
     recs += phase_lm("P arctic-480b", "arctic_480b", 2, 4096,
                      "flash_attention", 2, seed, dev, n_layers=2,
-                     controls=(gqa,), f32_layers=1)
+                     controls=(gqa,), f32_layers=1, tries=NQ_PROFILE_TRIES)
     lap("P")
     recs += phase_lm("Q jamba-v0.1-52b", "jamba_v0_1_52b", 2, 512,
                      "flash_attention", 2, seed, dev, n_layers=16,
-                     controls=(gqa,), f32_layers=8)
+                     controls=(gqa,), f32_layers=8, tries=NQ_PROFILE_TRIES)
     lap("Q")
     return recs
 
@@ -4776,16 +5551,24 @@ def main() -> int:
     recs_j = phase_representation(gen_tpch_columns(SCALE_B, args.seed),
                                   args.seed, dev)
     lap("J")
-    recs_k = phase_lm("K rwkv6-7b", "rwkv6_7b", 4, 4096, "rwkv6", 32,
-                      args.seed, dev)
+    recs_k = phase_lm("K rwkv6-7b", "rwkv6_7b", 4, 4096, "rwkv6",
+                      K_LAYERS, args.seed, dev, n_layers=K_LAYERS)
     lap("K")
+    recs_s = phase_train("S rwkv6-7b train", "rwkv6_7b", 4, 4096, "rwkv6",
+                         args.seed, dev)
+    lap("S")
     recs_l = phase_lm("L gemma2-27b", "gemma2_27b", 1, 8192,
-                      "flash_attention", 46, args.seed, dev)
+                      "flash_attention", L_LAYERS, args.seed, dev,
+                      n_layers=L_LAYERS)
     lap("L")
+    recs_r = phase_train("R gemma2-27b train", "gemma2_27b", 1, 8192,
+                         "flash_attention", args.seed, dev)
+    lap("R")
     recs_nq = phases_nq(args.seed, dev, lap)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": recs_b + recs_d + recs_fg + recs_j
-                      + recs_k + recs_l + recs_nq}), flush=True)
+                      + recs_k + recs_s + recs_l + recs_r + recs_nq}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

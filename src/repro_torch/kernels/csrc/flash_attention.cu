@@ -116,9 +116,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS)
     fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-              int Sq, int Sk, int D, int causal, int window, float scale,
-              float softcap) {
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, int D,
+              int causal, int window, float scale, float softcap) {
   extern __shared__ float4 smem4[];
   constexpr int LD = DP + 4;
   constexpr int PLD = BK + 4;
@@ -256,6 +256,8 @@ __global__ void __launch_bounds__(THREADS)
     const int row = q0 + ty * 4 + i;
     if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)   // m and l are the same in all 16 lanes
+      lse[qbase / D + row] = m[i] + logf(l[i]);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -620,9 +622,9 @@ __device__ __forceinline__ void tc_load_tile(bf16* dst, const bf16* src,
 template <int DP, int BKT, bool SOFTCAP>
 __global__ void __launch_bounds__(TC_THREADS)
     fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                 int Hkv, int Sq, int Sk, int D, int causal, int window,
-                 float scale, float softcap) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
+                 int D, int causal, int window, float scale, float softcap) {
   extern __shared__ float4 smem4[];
   constexpr int NS = BKT / 8;        // score fragments (n8 tiles over keys)
   constexpr int NO = DP / 8;         // output fragments (n8 tiles over d)
@@ -784,6 +786,9 @@ __global__ void __launch_bounds__(TC_THREADS)
     const int row = row0 + 8 * i;
     if (row >= Sq) continue;
     const float den = fmaxf(x, 1e-30f);
+    // the scores are in log2 units: lse = ln 2 (m + log2 l)
+    if (lse != nullptr && tg == 0)
+      lse[qbase / D + row] = (m[i] + log2f(x)) * 0.6931471805599453f;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
       const int col = j * 8 + 2 * tg;
@@ -798,8 +803,8 @@ __global__ void __launch_bounds__(TC_THREADS)
 // registers.
 template <int DP, bool SOFTCAP>
 static int launch_tc_cap(const void* q, const void* k, const void* v,
-                         void* o, int B, int H, int Hkv, int Sq, int Sk,
-                         int D, int causal, int window, float scale,
+                         void* o, float* lse, int B, int H, int Hkv, int Sq,
+                         int Sk, int D, int causal, int window, float scale,
                          float softcap, cudaStream_t st) {
   constexpr int BKT = DP <= 128 ? 64 : 32;
   const size_t smem = sizeof(bf16) * (64 + 4 * BKT) * DP + 1024;
@@ -809,21 +814,21 @@ static int launch_tc_cap(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + 63) / 64, H, B);
   fa_tc_kernel<DP, BKT, SOFTCAP><<<grid, TC_THREADS, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, H, Hkv, Sq,
-      Sk, D, causal, window, scale, softcap);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, Hkv,
+      Sq, Sk, D, causal, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
 template <int DP>
 static int launch_tc(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int Hkv, int Sq, int Sk, int D, int causal,
-                     int window, float scale, float softcap,
+                     float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
+                     int causal, int window, float scale, float softcap,
                      cudaStream_t st) {
   if (softcap > 0.0f)
-    return launch_tc_cap<DP, true>(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal,
-                                   window, scale, softcap, st);
-  return launch_tc_cap<DP, false>(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal,
-                                  window, scale, softcap, st);
+    return launch_tc_cap<DP, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D,
+                                   causal, window, scale, softcap, st);
+  return launch_tc_cap<DP, false>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D,
+                                  causal, window, scale, softcap, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -832,8 +837,8 @@ static int launch_tc(const void* q, const void* k, const void* v, void* o,
 
 template <typename T, int DP>
 static int launch(const void* q, const void* k, const void* v, void* o,
-                  int B, int H, int Hkv, int Sq, int Sk, int D, int causal,
-                  int window, float scale, float softcap,
+                  float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
+                  int causal, int window, float scale, float softcap,
                   cudaStream_t st) {
   constexpr int LD = DP + 4;
   const size_t smem = sizeof(float) * ((BQ + BK) * LD + BQ * (BK + 4));
@@ -843,24 +848,24 @@ static int launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   fa_kernel<T, DP><<<grid, THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq, Sk, D,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, Hkv, Sq, Sk, D,
       causal, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch_d(const void* q, const void* k, const void* v, void* o,
-                    int B, int H, int Hkv, int Sq, int Sk, int D, int causal,
-                    int window, float scale, float softcap,
+                    float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
+                    int causal, int window, float scale, float softcap,
                     cudaStream_t st) {
   if (D <= 64)
-    return launch<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal, window,
-                         scale, softcap, st);
+    return launch<T, 64>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, causal,
+                         window, scale, softcap, st);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal, window,
-                          scale, softcap, st);
-  return launch<T, 256>(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal, window,
-                        scale, softcap, st);
+    return launch<T, 128>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, causal,
+                          window, scale, softcap, st);
+  return launch<T, 256>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, causal,
+                        window, scale, softcap, st);
 }
 
 // The path rule: 1 (tensor cores) for bf16 with D a multiple of 16, the
@@ -872,13 +877,15 @@ extern "C" int flash_attention_uses_tensor_cores(int is_bf16, int D) {
 // q, o: (B, H, Sq, D); k, v: (B, Hkv, Sk, D); all contiguous, of one
 // dtype (is_bf16 != 0: bfloat16, else float32). 1 <= D <= 256, H % Hkv ==
 // 0, Sq, Sk >= 1. window <= 0: no window; softcap <= 0: no softcap. The
-// caller checks that every row keeps an unmasked column. The kernel is
-// the one flash_attention_uses_tensor_cores picks. Returns
-// cudaGetLastError() after the launch (nonzero: not launched).
+// caller checks that every row keeps an unmasked column. lse: null, or
+// (B, H, Sq) f32 for each row's log-sum-exp of its masked scores (what
+// the backward needs). The kernel is the one
+// flash_attention_uses_tensor_cores picks. Returns cudaGetLastError()
+// after the launch (nonzero: not launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int H,
-                                      int Hkv, int Sq, int Sk, int D,
-                                      int is_bf16, int causal,
+                                      const void* v, void* o, float* lse,
+                                      int B, int H, int Hkv, int Sq, int Sk,
+                                      int D, int is_bf16, int causal,
                                       int window, float scale, float softcap,
                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -886,17 +893,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   if (flash_attention_uses_tensor_cores(is_bf16, D)) {
     if (D <= 64)
-      return launch_tc<64>(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal, window,
-                           scale, softcap, st);
+      return launch_tc<64>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, causal,
+                           window, scale, softcap, st);
     if (D <= 128)
-      return launch_tc<128>(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal, window,
-                            scale, softcap, st);
-    return launch_tc<256>(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal, window,
-                          scale, softcap, st);
+      return launch_tc<128>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, causal,
+                            window, scale, softcap, st);
+    return launch_tc<256>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, causal,
+                          window, scale, softcap, st);
   }
   if (is_bf16)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal,
-                                   window, scale, softcap, st);
-  return launch_d<float>(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal, window,
-                         scale, softcap, st);
+    return launch_d<__nv_bfloat16>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D,
+                                   causal, window, scale, softcap, st);
+  return launch_d<float>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, causal,
+                         window, scale, softcap, st);
 }

@@ -6,6 +6,15 @@ There is no fallback from a failed launch and no switch to the plain
 version on the GPU: ``chip_smoke.py`` calls the ``ref`` functions
 directly when it compares.
 
+Gradients: ``flash_attention`` and ``rwkv6_scan`` are
+``torch.autograd.Function``s (``FlashAttention``, ``RWKV6``) where grad
+mode is on and an input requires grad. Their backward dispatches by
+device as their forward does: the hand-written backward kernel on the
+card, the plain backward formula (``ref.attention_bwd_ref``,
+``ref.rwkv6_bwd_ref``) on the CPU. Every other kernel has no backward:
+its wrapper raises on a CUDA input that requires grad in grad mode,
+where the kernel's output would silently carry none.
+
 Launch counts: ``launch_counts()`` reads the plain-integer counter each
 kernel wrapper keeps, ``reset_launch_counts()`` zeroes them.
 """
@@ -21,9 +30,17 @@ from . import (decode, flash_attention as flash_attention_kernel,
                segment_reduce as segment_reduce_kernel, shuffle_pack)
 
 
-def _route(t: torch.Tensor, what: str) -> bool:
-    """True for the kernel (CUDA), False for the plain version (CPU)."""
+def _route(t: torch.Tensor, what: str, *inputs) -> bool:
+    """True for the kernel (CUDA), False for the plain version (CPU).
+    Raises for a CUDA call where grad mode is on and one of ``inputs``
+    (the kernel's tensors) requires grad: the kernel has no backward."""
     if t.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                torch.is_tensor(x) and x.requires_grad for x in inputs):
+            raise RuntimeError(
+                f"{what}: the CUDA kernel has no backward, and an input "
+                "requires grad; call it under torch.no_grad() or on "
+                "detached tensors")
         return True
     if t.device.type == "cpu":
         return False
@@ -39,7 +56,7 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
     if squeeze:
         values = values[:, None]
     dtype = values.dtype
-    if not _route(seg_ids, "segment_reduce"):
+    if not _route(seg_ids, "segment_reduce", values, seg_ids):
         out = ref.segment_reduce_ref(values.to(torch.float32), seg_ids,
                                      num_segments)
     else:
@@ -55,7 +72,7 @@ def segment_sum_first(values: torch.Tensor, keys: torch.Tensor,
     """Fused Gamma tail: (segment sums f32, first-row index i32,
     first-row key values i64). values (n, d); keys (n, k) int64
     bit-views; seg_ids (n,) non-decreasing."""
-    if not _route(seg_ids, "segment_sum_first"):
+    if not _route(seg_ids, "segment_sum_first", values, keys, seg_ids):
         return ref.segment_sum_first_ref(values, keys, seg_ids,
                                          num_segments)
     return segment_fused.segment_sum_first_cuda(
@@ -67,7 +84,7 @@ def merge_positions(sorted_keys: torch.Tensor, queries: torch.Tensor
                     ) -> tuple:
     """(lo, hi) = searchsorted(sorted_keys, queries, left/right) as
     int32 — the join inner loop's position step."""
-    if not _route(queries, "merge_positions"):
+    if not _route(queries, "merge_positions", sorted_keys, queries):
         return ref.merge_positions_ref(sorted_keys, queries)
     return gather_join.merge_positions_cuda(
         sorted_keys.to(torch.int64).contiguous(),
@@ -76,7 +93,7 @@ def merge_positions(sorted_keys: torch.Tensor, queries: torch.Tensor
 
 def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row gather over int64 bit-views; out-of-range indices gather 0."""
-    if not _route(values, "gather_rows"):
+    if not _route(values, "gather_rows", values, idx):
         return ref.gather_rows_ref(values, idx)
     return gather_join.gather_rows_cuda(values.contiguous(),
                                         idx.to(torch.int64).contiguous())
@@ -87,7 +104,7 @@ def pack_rows(values: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor
     """The packed exchange's send buffer: out[j] = values[idx[j]] where
     ``ok[j]`` and idx in range, else 0. values (r, d) int64 bit-view
     lanes; idx int32/int64; ok bool/int32."""
-    if not _route(values, "pack_rows"):
+    if not _route(values, "pack_rows", values, idx, ok):
         return ref.pack_rows_ref(values, idx, ok)
     return shuffle_pack.pack_rows_cuda(values.contiguous(), idx.contiguous(),
                                        ok.contiguous())
@@ -97,7 +114,7 @@ def replicate_scatter(values: torch.Tensor, vidx: torch.Tensor,
                       ok: torch.Tensor, repl: int) -> torch.Tensor:
     """The HyperCube replicating scatter: pack_rows from source row
     ``vidx[j] // repl``; negative ids give 0."""
-    if not _route(values, "replicate_scatter"):
+    if not _route(values, "replicate_scatter", values, vidx, ok):
         return ref.replicate_scatter_ref(values, vidx, ok, repl)
     return shuffle_pack.replicate_scatter_cuda(
         values.contiguous(), vidx.contiguous(), ok.contiguous(), repl)
@@ -105,14 +122,14 @@ def replicate_scatter(values: torch.Tensor, vidx: torch.Tensor,
 
 def unpack_cols(buf: torch.Tensor) -> torch.Tensor:
     """(rows, lanes) wire buffer -> contiguous (lanes, rows)."""
-    if not _route(buf, "unpack_cols"):
+    if not _route(buf, "unpack_cols", buf):
         return ref.unpack_cols_ref(buf)
     return shuffle_pack.unpack_cols_cuda(buf.contiguous())
 
 
 def member_mask(keys: torch.Tensor, heavy: torch.Tensor) -> torch.Tensor:
     """keys[i] in the padded heavy-key set (INT64_MAX never matches)."""
-    if not _route(keys, "member_mask"):
+    if not _route(keys, "member_mask", keys, heavy):
         return ref.member_mask_ref(keys, heavy)
     return shuffle_pack.member_mask_cuda(keys.to(torch.int64).contiguous(),
                                          heavy.to(torch.int64).contiguous())
@@ -130,7 +147,7 @@ def rle_expand(values: torch.Tensor, lengths: torch.Tensor, n: int,
     i; the runs, ``lengths[j]`` rows each, tile [0, n). int64 bit-views;
     ``lengths`` at their stored width. ``out``: an optional (n,) int64
     tensor to decode into."""
-    if not _route(values, "rle_expand"):
+    if not _route(values, "rle_expand", values, lengths, out):
         return _into(out, ref.rle_expand_ref(values, lengths, n))
     return decode.rle_expand_cuda(values.contiguous(), lengths.contiguous(),
                                   n, out)
@@ -141,7 +158,7 @@ def delta_unpack(z: torch.Tensor, first: int,
     """Zigzag-delta decode: first + inclusive modular-uint64 prefix sum
     of the decoded deltas, as int64 bits. ``z`` unsigned at its stored
     width; ``first`` the uint64 start value as a Python int."""
-    if not _route(z, "delta_unpack"):
+    if not _route(z, "delta_unpack", z, out):
         return _into(out, ref.delta_unpack_ref(z, first))
     return decode.delta_unpack_cuda(z.contiguous(), first, out)
 
@@ -150,7 +167,7 @@ def bitunpack(words: torch.Tensor, k: int, vpw: int, n: int, lo: int,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Frame-of-reference unpack: k-bit values, vpw per uint32 word,
     + lo -> int64, trimmed to n rows."""
-    if not _route(words, "bitunpack"):
+    if not _route(words, "bitunpack", words, out):
         return _into(out, ref.bitunpack_ref(words, k, vpw, n, lo))
     return decode.bitunpack_cuda(words.contiguous(), k, vpw, n, lo, out)
 
@@ -159,10 +176,52 @@ def dict_gather(values: torch.Tensor, codes: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dictionary decode: out[i] = values[codes[i]] (int64 bit-views;
     out-of-range codes gather 0). ``codes`` at their stored width."""
-    if not _route(values, "dict_gather"):
+    if not _route(values, "dict_gather", values, codes, out):
         return _into(out, ref.dict_gather_ref(values, codes))
     return decode.dict_gather_cuda(values.contiguous(), codes.contiguous(),
                                    out)
+
+
+def _needs_grad(*inputs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient. Where autograd records
+    (``record``), the forward also writes the row log-sum-exp and keeps
+    its inputs and output, and the backward computes dq, dk and dv from
+    them, by the kernels on the card and by ``ref.attention_bwd_ref`` on
+    the CPU; otherwise the forward writes no log-sum-exp and keeps
+    nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, record=True):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if _route(q, "flash_attention"):
+            res = flash_attention_kernel.flash_attention_cuda(
+                q, k, v, causal, window, softcap, scale, with_lse=record)
+        else:
+            flash_attention_kernel.check_masks(q.shape[2], k.shape[2],
+                                               causal, window)
+            res = ref.attention_ref(q, k, v, causal, window, softcap,
+                                    scale, with_lse=record)
+        if not record:
+            return res
+        o, lse = res
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, softcap, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        if _route(q, "flash_attention backward"):
+            grads = flash_attention_kernel.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, *ctx.args)
+        else:
+            grads = ref.attention_bwd_ref(q, k, v, o, lse, do, *ctx.args)
+        return (*grads, None, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,14 +231,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Softmax attention of q (B, H, Sq, D) over k, v (B, Hkv, Sk, D)
     with GQA, causal and sliding-window masks (rows and keys counted
     from 0) and logit soft-capping; f32 arithmetic, out in q's dtype.
-    Refuses calls where a query row has no unmasked key."""
-    if not _route(q, "flash_attention"):
-        flash_attention_kernel.check_masks(q.shape[2], k.shape[2], causal,
-                                           window)
-        return ref.attention_ref(q, k, v, causal, window, softcap, scale)
-    return flash_attention_kernel.flash_attention_cuda(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal, window,
-        softcap, scale)
+    Refuses calls where a query row has no unmasked key. Differentiable
+    (``FlashAttention``) where grad mode is on and an input requires
+    grad; otherwise the forward alone, which writes no log-sum-exp."""
+    return FlashAttention.apply(q, k, v, causal, window, softcap, scale,
+                                _needs_grad(q, k, v))
+
+
+class RWKV6(torch.autograd.Function):
+    """``rwkv6_scan`` with its gradient (dr, dk, dv, dw and du), by the
+    backward kernel on the card and by ``ref.rwkv6_bwd_ref`` on the
+    CPU. u comes in f32 and its gradient goes out in f32. The forward
+    keeps its inputs only where autograd records (``record``)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk, record=True):
+        r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))
+        if _route(r, "rwkv6_scan"):
+            o = rwkv6_kernel.rwkv6_cuda(r, k, v, w, u, chunk)
+        else:
+            o = ref.rwkv6_ref(r, k, v, w, u)
+        if record:
+            ctx.save_for_backward(r, k, v, w, u)
+            ctx.chunk = chunk
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        r, k, v, w, u = ctx.saved_tensors
+        do = do.to(r.dtype).contiguous()
+        if _route(r, "rwkv6_scan backward"):
+            grads = rwkv6_kernel.rwkv6_bwd_cuda(r, k, v, w, u, do, ctx.chunk)
+        else:
+            grads = ref.rwkv6_bwd_ref(r, k, v, w, u, do, ctx.chunk)
+        return (*grads, None, None)
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -188,12 +273,11 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The RWKV-6 recurrence: r, k, w (B, H, T, K), v (B, H, T, V), u
     (H, K) -> (B, H, T, V) in r's dtype, f32 inside. The kernel runs the
     chunked form with chunks of ``chunk`` steps; the plain version the
-    sequential recurrence (the chunk changes only the rounding)."""
-    if not _route(r, "rwkv6_scan"):
-        return ref.rwkv6_ref(r, k, v, w, u)
-    return rwkv6_kernel.rwkv6_cuda(
-        r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
-        u.to(torch.float32).contiguous(), chunk)
+    sequential recurrence (the chunk changes only the rounding).
+    Differentiable (``RWKV6``) where grad mode is on and an input
+    requires grad."""
+    u = u.to(torch.float32)
+    return RWKV6.apply(r, k, v, w, u, chunk, _needs_grad(r, k, v, w, u))
 
 
 def launch_counts() -> dict:
@@ -211,7 +295,9 @@ def launch_counts() -> dict:
             "replicate_scatter": shuffle_pack.REPL_LAUNCHES,
             "flash_attention": sum(
                 flash_attention_kernel.PATH_LAUNCHES.values()),
-            "rwkv6": rwkv6_kernel.LAUNCHES}
+            "flash_attention_bwd": flash_attention_kernel.BWD_LAUNCHES,
+            "rwkv6": rwkv6_kernel.LAUNCHES,
+            "rwkv6_bwd": rwkv6_kernel.BWD_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -229,3 +315,4 @@ def reset_launch_counts() -> None:
     shuffle_pack.REPL_LAUNCHES = 0
     flash_attention_kernel.reset_path_launches()
     rwkv6_kernel.LAUNCHES = 0
+    rwkv6_kernel.BWD_LAUNCHES = 0

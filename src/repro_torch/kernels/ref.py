@@ -197,40 +197,116 @@ def _as_int64_bits(v: int) -> int:
 NEG_INF = -1e30
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The LM plain versions' arithmetic: f32, or f64 for f64 inputs (so
+    that ``torch.autograd.gradcheck`` can hold the backward formulas to
+    finite differences)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _attention_mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
+                    device) -> torch.Tensor:
+    rows = torch.arange(Sq, device=device)[:, None]
+    cols = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols > rows - window
+    return mask
+
+
+def _scores(qg: torch.Tensor, kj: torch.Tensor, mask: torch.Tensor,
+            scale: float, softcap: Optional[float]) -> tuple:
+    """(masked scores, tanh(s / softcap) or None) of one batch row's
+    group of query heads qg (G, Sq, D) over one KV head kj (Sk, D), f32."""
+    acc = _acc_dtype(qg)
+    # out of place: under selective checkpointing the product's output
+    # is kept and handed back in the recomputation
+    s = torch.matmul(qg.to(acc), kj.to(acc).t()) * scale
+    t = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+    s.masked_fill_(~mask, NEG_INF)
+    return s, t
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, window: Optional[int] = None,
                   softcap: Optional[float] = None,
-                  scale: Optional[float] = None) -> torch.Tensor:
+                  scale: Optional[float] = None, with_lse: bool = False):
     """Materialized-scores softmax attention with GQA, causal and
     sliding-window masks and logit soft-capping, in f32; out in q's
     dtype. q (B, H, Sq, D); k, v (B, Hkv, Sk, D); query head h reads KV
     head h // (H // Hkv). The scores are materialized for one batch row
     and one KV head's group of query heads at a time, so that the peak
-    stays at (H // Hkv) * Sq * Sk floats."""
+    stays at (H // Hkv) * Sq * Sk floats. ``with_lse``: also the f32 row
+    log-sum-exp of the masked scores (B, H, Sq), what the backward
+    needs."""
     B, H, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     group = H // Hkv
     scale = scale if scale is not None else D ** -0.5
-    rows = torch.arange(Sq, device=q.device)[:, None]
-    cols = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= cols <= rows
-    if window is not None:
-        mask &= cols > rows - window
+    mask = _attention_mask(Sq, Sk, causal, window, q.device)
     out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+    acc = _acc_dtype(q)
+    lse = torch.empty((B, H, Sq), dtype=acc, device=q.device) \
+        if with_lse else None
     for b in range(B):
         for j in range(Hkv):
             hs = slice(j * group, (j + 1) * group)
-            s = torch.matmul(q[b, hs].float(), k[b, j].float().t())
-            s.mul_(scale)
-            if softcap is not None:
-                s.div_(softcap).tanh_().mul_(softcap)
-            s.masked_fill_(~mask, NEG_INF)
+            s, _ = _scores(q[b, hs], k[b, j], mask, scale, softcap)
+            if with_lse:
+                lse[b, hs] = torch.logsumexp(s, dim=-1)
             p = torch.softmax(s, dim=-1)
             del s
-            out[b, hs] = torch.matmul(p, v[b, j].float()).to(q.dtype)
-    return out
+            out[b, hs] = torch.matmul(p, v[b, j].to(acc)).to(q.dtype)
+    return (out, lse) if with_lse else out
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      causal: bool = True, window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      scale: Optional[float] = None) -> tuple:
+    """(dq, dk, dv) of ``attention_ref`` for the output's cotangent do,
+    given its output o and row log-sum-exp lse, in f32, each in its
+    input's dtype. Per unmasked pair, with s = scale q.k and
+    S = c tanh(s / c) (S = s without a softcap c):
+    P = exp(S - lse), D = rowsum(do * o), dP = do.v^T,
+    dS = P (dP - D) (1 - (S / c)^2); dq = scale dS.k,
+    dk = scale dS^T.q and dv = P^T.do, dk and dv summed over the query
+    heads of a KV head's group."""
+    B, H, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    group = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    mask = _attention_mask(Sq, Sk, causal, window, q.device)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    acc = _acc_dtype(q)
+    delta = (do.to(acc) * o.to(acc)).sum(-1)             # (B, H, Sq)
+    for b in range(B):
+        for j in range(Hkv):
+            hs = slice(j * group, (j + 1) * group)
+            s, t = _scores(q[b, hs], k[b, j], mask, scale, softcap)
+            p = torch.exp(s - lse[b, hs, :, None])
+            del s
+            dof = do[b, hs].to(acc)
+            dp = torch.matmul(dof, v[b, j].to(acc).t())
+            ds = p * (dp - delta[b, hs, :, None])
+            del dp
+            if t is not None:
+                ds.mul_(1 - t * t)
+            del t
+            dq[b, hs] = (torch.matmul(ds, k[b, j].to(acc)) * scale).to(
+                q.dtype)
+            dk[b, j] = (torch.einsum("gqk,gqd->kd", ds, q[b, hs].to(acc))
+                        * scale).to(k.dtype)
+            dv[b, j] = torch.einsum("gqk,gqd->kd", p, dof).to(v.dtype)
+    return dq, dk, dv
 
 
 def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -244,12 +320,74 @@ def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     B, H, T, K = r.shape
     V = v.shape[-1]
-    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
-    S = torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
-    out = torch.empty((B, H, T, V), dtype=torch.float32, device=r.device)
+    acc = _acc_dtype(r)
+    rf, kf, vf, wf = (x.to(acc) for x in (r, k, v, w))
+    S = torch.zeros((B, H, K, V), dtype=acc, device=r.device)
+    out = torch.empty((B, H, T, V), dtype=acc, device=r.device)
     for t in range(T):        # o_t = r_t S_{t-1} + (r_t . (u k_t)) v_t
         out[:, :, t] = torch.matmul(rf[:, :, t, None, :], S)[:, :, 0]
         S = torch.addcmul(wf[:, :, t, :, None] * S, kf[:, :, t, :, None],
                           vf[:, :, t, None, :])
-    bonus = (rf * u.float()[None, :, None, :] * kf).sum(-1, keepdim=True)
+    bonus = (rf * u.to(acc)[None, :, None, :] * kf).sum(-1, keepdim=True)
     return out.addcmul_(bonus, vf).to(r.dtype)
+
+
+W_FLOOR = 1e-12   # decays below it get no gradient (the reference's
+#                   log(maximum(w, 1e-12)) in its chunked form)
+
+
+def rwkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
+                  chunk: int = 64) -> tuple:
+    """(dr, dk, dv, dw, du) of ``rwkv6_ref`` for the output's cotangent
+    do, in f32 (f64 for f64 inputs); dr, dk, dv, dw in their inputs'
+    dtype, du (H, K) in that arithmetic's.
+    Backward through the recurrence with G_t = dL/dS_t, G_{T-1} = 0 and
+    G_{t-1} = diag(w_t) G_t + r_t do_t^T:
+
+      dr_t = S_{t-1} do_t + (u k_t)(v_t . do_t)
+      dk_t = G_t v_t + (u r_t)(v_t . do_t)
+      dv_t = G_t^T k_t + (r_t . (u k_t)) do_t
+      dw_t = rowsum(G_t * S_{t-1}), 0 where w_t < W_FLOOR
+      du   = sum over b and t of r_t k_t (v_t . do_t)
+
+    The states S_{t-1} are needed in reverse: the states at every
+    ``chunk``-th step are kept from a forward pass, and each chunk's are
+    formed again from its first (w is never divided by)."""
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    acc = _acc_dtype(r)
+    rf, kf, vf, wf, dof = (x.to(acc) for x in (r, k, v, w, do))
+    uf = u.to(acc)
+    starts = []
+    S = torch.zeros((B, H, K, V), dtype=acc, device=r.device)
+    for t in range(T):
+        if t % chunk == 0:
+            starts.append(S)
+        S = torch.addcmul(wf[:, :, t, :, None] * S, kf[:, :, t, :, None],
+                          vf[:, :, t, None, :])
+    a = (vf * dof).sum(-1, keepdim=True)                 # v_t . do_t
+    bonus = (rf * uf[None, :, None, :] * kf).sum(-1, keepdim=True)
+    dr = uf[None, :, None, :] * kf * a
+    dk = uf[None, :, None, :] * rf * a
+    dv = bonus * dof
+    dw = torch.zeros_like(wf)
+    G = torch.zeros((B, H, K, V), dtype=acc, device=r.device)
+    for c0 in reversed(range(0, T, chunk)):
+        prev = [starts[c0 // chunk]]                      # S_{t-1}
+        for t in range(c0, min(c0 + chunk, T) - 1):
+            prev.append(torch.addcmul(wf[:, :, t, :, None] * prev[-1],
+                                      kf[:, :, t, :, None],
+                                      vf[:, :, t, None, :]))
+        for t in reversed(range(c0, min(c0 + chunk, T))):
+            Sp = prev.pop()
+            dr[:, :, t] += torch.matmul(Sp, dof[:, :, t, :, None])[..., 0]
+            dk[:, :, t] += torch.matmul(G, vf[:, :, t, :, None])[..., 0]
+            dv[:, :, t] += torch.matmul(kf[:, :, t, None, :], G)[..., 0, :]
+            dw[:, :, t] = (G * Sp).sum(-1)
+            G = torch.addcmul(wf[:, :, t, :, None] * G, rf[:, :, t, :, None],
+                              dof[:, :, t, None, :])
+    dw = torch.where(wf < W_FLOOR, torch.zeros_like(dw), dw)
+    du = (rf * kf * a).sum((0, 2))
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du)

@@ -1,4 +1,5 @@
-"""Chunked RWKV-6 recurrence on Hopper (``csrc/rwkv6_scan.cu``).
+"""Chunked RWKV-6 recurrence on Hopper (``csrc/rwkv6_scan.cu``; the
+backward in ``csrc/rwkv6_bwd.cu``).
 
 The Pallas kernel's function: the chunked form of the data-dependent
 decay recurrence, f32 arithmetic and state, the output in r's dtype.
@@ -6,8 +7,13 @@ The design note is in the CUDA source: one kernel for f32 and bf16,
 its products on the tensor cores (``PATH``) in TF32 with every f32
 operand split into two terms, the decays factored at 16-step sub-chunks.
 
-``LAUNCHES`` counts the calls that launched the kernel (and nothing
-else), so a run can show that its path went through it.
+The backward (``rwkv6_bwd_cuda``) is one more kernel: a block per
+(b, h) runs the recurrence of the state's gradient backward, with the
+state formed again from its value at every chunk start.
+
+``LAUNCHES`` counts the forward calls that launched the kernel and
+``BWD_LAUNCHES`` the backward's (and nothing else), so a run can show
+that its path went through them.
 """
 
 from __future__ import annotations
@@ -19,11 +25,15 @@ import torch
 from . import build
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 PATH = "tensor_cores"  # the one path: every call of every shape takes it
+BWD_PATH = "cuda_cores"  # the backward's one path
 _FN = None
+_BWD_FN = None
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_KV = 128          # largest K and V: the chunk, its sums and the K x V
 MAX_CHUNK = 64        # state stay within a block's shared memory
+MAX_BWD_STATE = 4096  # K V of the backward: 16 state elements a thread
 
 
 def _fn():
@@ -37,6 +47,89 @@ def _fn():
     return _FN
 
 
+def _bwd_fn():
+    global _BWD_FN
+    if _BWD_FN is None:
+        f = build.load("rwkv6_bwd").rwkv6_bwd_launch
+        f.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _BWD_FN = f
+    return _BWD_FN
+
+
+def _check(what: str, r, k, v, w, u) -> None:
+    dev = r.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: tensors on {dev}")
+    if r.dtype not in _DTYPES or any(x.dtype != r.dtype for x in (k, v, w)):
+        raise TypeError(f"{what}: want r, k, v, w all float32 or all "
+                        f"bfloat16; got {r.dtype}, {k.dtype}, {v.dtype}, "
+                        f"{w.dtype}")
+    if u.dtype != torch.float32:
+        raise TypeError(f"{what}: want u float32; got {u.dtype}")
+    if r.dim() != 4 or k.shape != r.shape or w.shape != r.shape \
+            or v.dim() != 4 or v.shape[:3] != r.shape[:3]:
+        raise ValueError(f"{what}: want r, k, w (B, H, T, K) and v (B, H, "
+                         f"T, V); got {tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(w.shape)}")
+    B, H, T, K = r.shape
+    V = v.shape[3]
+    if tuple(u.shape) != (H, K):
+        raise ValueError(f"{what}: want u ({H}, {K}); got {tuple(u.shape)}")
+    if not (1 <= K <= MAX_KV and 1 <= V <= MAX_KV):
+        raise ValueError(f"{what}: K={K}, V={V} outside [1, {MAX_KV}]")
+    if B < 1 or H < 1 or T < 1:
+        raise ValueError(f"{what}: B={B}, H={H}, T={T}")
+    if not all(x.is_contiguous() for x in (r, k, v, w, u)):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if any(x.device != dev for x in (k, v, w, u)):
+        raise ValueError(f"{what}: inputs on different devices")
+
+
+def rwkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
+                   chunk: int = 64) -> tuple:
+    """(dr, dk, dv, dw, du) of ``rwkv6_cuda`` for the output's cotangent
+    ``do`` (B, H, T, V) of r's dtype; the arguments otherwise as
+    ``rwkv6_cuda``'s. dr, dk, dv, dw in r's dtype; du (H, K) f32, the
+    kernel's per-(b, h) sums added over b here. ``chunk``: the steps
+    between the states the kernel keeps (a scratch of B H ceil(T /
+    chunk) K V floats, and one of its sub-chunks' start states)."""
+    _check("rwkv6_bwd_cuda", r, k, v, w, u)
+    B, H, T, K = r.shape
+    V = v.shape[3]
+    if K * V > MAX_BWD_STATE:
+        raise ValueError(f"rwkv6_bwd_cuda: K={K}, V={V}: the backward "
+                         f"kernel takes K V <= {MAX_BWD_STATE}")
+    if do.shape != v.shape or do.dtype != r.dtype or not do.is_contiguous() \
+            or do.device != r.device:
+        raise ValueError("rwkv6_bwd_cuda: want do contiguous, of v's shape "
+                         f"and r's dtype; got {tuple(do.shape)} {do.dtype}")
+    chunk = min(int(chunk), T)
+    if chunk < 1:
+        raise ValueError(f"rwkv6_bwd_cuda: chunk {chunk}")
+    dev = r.device
+    dr, dk, dw = (torch.empty_like(r) for _ in range(3))
+    dv = torch.empty_like(v)
+    du_part = torch.empty((B, H, K), dtype=torch.float32, device=dev)
+    ckpt = torch.empty((B * H * (-(-T // chunk)) * K * V,),
+                       dtype=torch.float32, device=dev)
+    steps = build.load("rwkv6_bwd").rwkv6_bwd_steps(K, V, chunk)
+    subst = torch.empty((B * H * (-(-chunk // steps)) * K * V,),
+                        dtype=torch.float32, device=dev)
+    fn = _bwd_fn()
+    with torch.cuda.device(dev):
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), do.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
+                 ckpt.data_ptr(), subst.data_ptr(), B, H, T, K, V, chunk,
+                 int(r.dtype == torch.bfloat16), build.stream_handle(dev))
+    build.check(err, "rwkv6 backward")
+    build.bump(globals(), "BWD_LAUNCHES")
+    return dr, dk, dv, dw, du_part.sum(0)
+
+
 def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor, chunk: int = 64
                ) -> torch.Tensor:
@@ -44,37 +137,14 @@ def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and v (B, H, T, V), contiguous, of one dtype (float32 or bfloat16);
     u (H, K) float32, contiguous; all on one CUDA device. K, V <= 128;
     the chunk is min(chunk, T), at most 64."""
-    dev = r.device
-    if dev.type != "cuda":
-        raise ValueError(f"rwkv6_cuda: tensors on {dev}")
-    if r.dtype not in _DTYPES or any(x.dtype != r.dtype for x in (k, v, w)):
-        raise TypeError("rwkv6_cuda: want r, k, v, w all float32 or all "
-                        f"bfloat16; got {r.dtype}, {k.dtype}, {v.dtype}, "
-                        f"{w.dtype}")
-    if u.dtype != torch.float32:
-        raise TypeError(f"rwkv6_cuda: want u float32; got {u.dtype}")
-    if r.dim() != 4 or k.shape != r.shape or w.shape != r.shape \
-            or v.dim() != 4 or v.shape[:3] != r.shape[:3]:
-        raise ValueError("rwkv6_cuda: want r, k, w (B, H, T, K) and v (B, H, "
-                         f"T, V); got {tuple(r.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}, {tuple(w.shape)}")
+    _check("rwkv6_cuda", r, k, v, w, u)
     B, H, T, K = r.shape
     V = v.shape[3]
-    if tuple(u.shape) != (H, K):
-        raise ValueError(f"rwkv6_cuda: want u ({H}, {K}); got "
-                         f"{tuple(u.shape)}")
-    if not (1 <= K <= MAX_KV and 1 <= V <= MAX_KV):
-        raise ValueError(f"rwkv6_cuda: K={K}, V={V} outside [1, {MAX_KV}]")
-    if B < 1 or H < 1 or T < 1:
-        raise ValueError(f"rwkv6_cuda: B={B}, H={H}, T={T}")
+    dev = r.device
     chunk = min(int(chunk), T)
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"rwkv6_cuda: chunk {chunk} outside [1, "
                          f"{MAX_CHUNK}]")
-    if not all(x.is_contiguous() for x in (r, k, v, w, u)):
-        raise ValueError("rwkv6_cuda: inputs must be contiguous")
-    if any(x.device != dev for x in (k, v, w, u)):
-        raise ValueError("rwkv6_cuda: inputs on different devices")
     out = torch.empty((B, H, T, V), dtype=r.dtype, device=dev)
     fn = _fn()
     with torch.cuda.device(dev):

@@ -127,15 +127,26 @@ def _selective_scan(dt, dh, Bm, Cm, A) -> torch.Tensor:
     Bsz, S, din = dt.shape
     n = A.shape[1]
     s = torch.zeros((Bsz, din, n), dtype=torch.float32, device=dt.device)
+    record = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (dt, dh, Bm, Cm, A))
     ys = []
     for c0 in range(0, S, SCAN_CHUNK):
         c1 = min(c0 + SCAN_CHUNK, S)
         da = torch.exp(dt[:, c0:c1, :, None] * A)           # (B,c,din,n)
         db = dh[:, c0:c1, :, None] * Bm[:, c0:c1, None, :]
-        states = torch.empty_like(da)
-        for t in range(c1 - c0):
-            s = torch.mul(s, da[:, t], out=states[:, t])
-            s.add_(db[:, t])
+        if record:
+            # autograd takes no out= and no in-place add on the saved
+            # states: the same two roundings, out of place
+            steps = []
+            for t in range(c1 - c0):
+                s = s * da[:, t] + db[:, t]
+                steps.append(s)
+            states = torch.stack(steps, dim=1)
+        else:
+            states = torch.empty_like(da)
+            for t in range(c1 - c0):
+                s = torch.mul(s, da[:, t], out=states[:, t])
+                s.add_(db[:, t])
         ys.append(torch.einsum("bscn,bsn->bsc", states, Cm[:, c0:c1]))
         del da, db, states
     return torch.cat(ys, dim=1)

@@ -1,5 +1,6 @@
-"""The architecture zoo's stacked-block LM, serving half: parameters,
-forward, prefill and the cache decode step.
+"""The architecture zoo's stacked-block LM: parameters, forward (with
+the reference's remat modes), the training loss, prefill and the cache
+decode step.
 
 PyTorch twin of ``repro.models.transformer`` for all ten configs: dense
 attention (full, sliding-window, soft-capped, GQA), RWKV-6 and Mamba
@@ -22,15 +23,19 @@ every layer, as the reference does.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from .. import tree as TR
 from ..columnar.table import resolve_device
 from .config import LayerKind, ModelConfig
-from .layers import (chunked_attention, decode_attention, mlp_apply,
-                     mlp_param_shapes, rms_norm, rope)
+from .layers import (chunked_attention, chunked_xent, decode_attention,
+                     mlp_apply, mlp_param_shapes, rms_norm, rope)
 from .moe import moe_apply, moe_param_shapes
 from .ssm import mamba_mixer, mamba_params, rwkv_mixer, rwkv_mixer_params
 
@@ -410,10 +415,40 @@ def _encoder(cfg: ModelConfig, params, enc_embeds):
     return rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
 
 
+# the products whose outputs "dots" keeps: the reference's
+# dots_with_no_batch_dims_saveable, as x @ W reaches ATen (batched
+# products, such as the plain attention's, are formed again)
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, body, x, params):
+    """``body(x)`` (one block's layers) under ``cfg.remat`` where autograd
+    records: "block" keeps only the block's input and forms the rest
+    again in the backward; "dots" keeps the outputs of the x @ W
+    products as well (selective checkpointing); "none" keeps all. The
+    value is the same in every mode."""
+    record = torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in TR.leaves(params)))
+    if cfg.remat == "none" or not record:
+        return body(x)
+    if cfg.remat == "block":
+        return checkpoint(body, x, use_reentrant=False)
+    if cfg.remat == "dots":
+        return checkpoint(body, x, use_reentrant=False, context_fn=partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"{cfg.name}: remat {cfg.remat!r}")
+
+
 def forward(cfg: ModelConfig, params, tokens, embeds_prefix=None,
             enc_embeds=None):
     """Training/prefill forward to final hidden states (B, S, d). A
-    config with an encoder needs ``enc_embeds`` (B, S_enc, d_model)."""
+    config with an encoder needs ``enc_embeds`` (B, S_enc, d_model).
+    Each block of ``cfg.period`` layers runs under ``cfg.remat``."""
     enc_out = None
     if cfg.enc_layers:
         if enc_embeds is None:
@@ -423,10 +458,31 @@ def forward(cfg: ModelConfig, params, tokens, embeds_prefix=None,
     x = embed_tokens(cfg, params, tokens, embeds_prefix)
     positions = torch.arange(x.shape[1], device=x.device)
     for b in range(cfg.n_blocks):
-        for pos in range(cfg.period):
-            x = _apply_layer(cfg, pos, _block(params, pos, b), x, positions,
-                             enc_out=enc_out)
+        blk = {str(pos): _block(params, pos, b) for pos in range(cfg.period)}
+
+        def body(h, blk=blk):
+            for pos in range(cfg.period):
+                h = _apply_layer(cfg, pos, blk[str(pos)], h, positions,
+                                 enc_out=enc_out)
+            return h
+
+        x = _remat(cfg, body, x, blk)
     return rms_norm(x, params["final_ln"], cfg.norm_eps)
+
+
+def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` ("tokens", "labels"
+    (B, S), padding -1; "embeds_prefix" (B, P, d) for a VLM's image
+    prefix, whose positions carry no label; "enc_embeds" for an
+    encoder) under the tied or untied head and the final softcap."""
+    prefix = batch.get("embeds_prefix")
+    h = forward(cfg, params, batch["tokens"], embeds_prefix=prefix,
+                enc_embeds=batch.get("enc_embeds"))
+    if prefix is not None:
+        h = h[:, prefix.shape[1]:]
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    return chunked_xent(h, head, batch["labels"], chunk=cfg.seq_chunk_loss,
+                        final_softcap=cfg.final_softcap)
 
 
 def _logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:

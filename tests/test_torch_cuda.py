@@ -1110,3 +1110,227 @@ def test_warm_replay_builds_its_bags_on_the_card(cuda, tmp_path):
     traces = CG.TRACE_STATS.get("traces", 0)
     r = rt2.submit(QueryRequest(chip_smoke.family_program(19.0), env))
     assert r.ok and CG.TRACE_STATS.get("traces", 0) == traces
+
+
+# ---------------------------------------------------------------------------
+# the training half: the backward kernels, the train step, the refusal
+# ---------------------------------------------------------------------------
+
+BWD_ATTN_SHAPES = [
+    # (B, H, Hkv, Sq, Sk, D, kwargs)
+    (1, 4, 2, 63, 63, 16, dict(causal=True)),
+    (2, 4, 2, 130, 130, 64, dict(causal=True, window=40, softcap=20.0)),
+    (1, 8, 2, 129, 129, 128, dict(causal=True, softcap=50.0)),
+    (1, 2, 1, 65, 65, 256, dict(causal=True, window=64)),
+    (1, 4, 4, 70, 200, 64, dict(causal=False)),
+    (2, 8, 8, 448, 1500, 64, dict(causal=False)),   # Whisper's cross
+    (1, 8, 8, 1500, 1500, 64, dict(causal=False)),  # Whisper's encoder
+    (1, 2, 2, 100, 100, 24, dict(causal=False, window=30)),
+]
+
+
+def _attention_bwd_args(shape, dtype, dev, seed):
+    from repro_torch.kernels import flash_attention as TFA
+    B, H, Hkv, Sq, Sk, D, kw = shape
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.as_tensor(rng.randn(B, h, s, D), dtype=dtype,
+                               device=dev)
+               for h, s in ((H, Sq), (Hkv, Sk), (Hkv, Sk)))
+    do = torch.as_tensor(rng.randn(B, H, Sq, D) * 0.1, dtype=dtype,
+                         device=dev)
+    o, lse = TFA.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", range(len(BWD_ATTN_SHAPES)))
+def test_flash_attention_backward_within_its_bound(cuda, case, dtype):
+    """The backward kernels at GQA groups 1-4, D from 16 to 256, causal,
+    window and softcap, and Whisper's non-causal calls (448 and 1500
+    rows over 1500 keys): dq, dk, dv within ``attention_bwd_bound`` of
+    the plain version (+1 bf16 ulp in bf16), two launches bit-identical,
+    each call counted once; the forward's lse within its bound of the
+    plain version's."""
+    from repro_torch.kernels import flash_attention as TFA
+    args, kw = _attention_bwd_args(BWD_ATTN_SHAPES[case], dtype, cuda, case)
+    q, k, v, o, lse, do = args
+    _, want = TR.attention_ref(q, k, v, with_lse=True, **kw)
+    D, Sk = q.shape[-1], k.shape[2]
+    qn, kn = float(q.float().norm(dim=-1).max()), float(
+        k.float().norm(dim=-1).max())
+    # the scores' error (two D-term dot products), the sum of Sk terms,
+    # log and exp: |lse - plain lse| within
+    lse_tol = 2 * chip_smoke.U_F32 * (D ** 0.5 * qn * kn + Sk + 8) \
+        + 2 * chip_smoke.U_F32 * want.abs()
+    chip_smoke.within(lse, want, lse_tol)
+    before = TFA.BWD_LAUNCHES
+    chip_smoke.check_lm_bwd("flash_attention_bwd", args, kw)
+    assert TFA.BWD_LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_controls_lie_beyond_the_bound(cuda):
+    """The two faults a backward could have, each put into it: dk and dv
+    without the GQA sum (the kernel run over the KV heads repeated, one
+    query head of each group kept) and the softcap's factor dropped (the
+    plain formulas without it, at scores of up to about 20): both move
+    the gradients beyond the bound."""
+    from repro_torch.kernels import flash_attention as TFA
+    shape = (1, 8, 2, 256, 256, 128, dict(causal=True, softcap=50.0))
+    args, kw = _attention_bwd_args(shape, torch.bfloat16, cuda, 7)
+    q, k, v, o, lse, do = args
+    want = TR.attention_bwd_ref(*args, **kw)
+    tols = chip_smoke.attention_bwd_bound(*args, **kw)
+    G = q.shape[1] // k.shape[1]
+    kr, vr = (x.repeat_interleave(G, dim=1).contiguous() for x in (k, v))
+    _, dk, dv = TFA.flash_attention_bwd_cuda(q, kr, vr, o, lse, do, **kw)
+    assert chip_smoke.beyond((want[0], dk[:, ::G].contiguous(),
+                              dv[:, ::G].contiguous()), want, tols) > 1
+    q2 = (q.float() * 20).to(q.dtype)
+    o2, lse2 = TFA.flash_attention_cuda(q2, k, v, with_lse=True, **kw)
+    args2 = (q2, k, v, o2, lse2, do)
+    bad = chip_smoke.attention_bwd_no_softcap_factor(*args2, **kw)
+    assert chip_smoke.beyond(bad, TFA.flash_attention_bwd_cuda(
+        *args2, **kw), chip_smoke.attention_bwd_bound(*args2, **kw)) > 1
+
+
+def _rwkv_bwd_args(B, H, T, K, V, dtype, dev, seed, tiny=False):
+    rng = np.random.RandomState(seed)
+    r, k = (torch.as_tensor(rng.randn(B, H, T, K) * 0.5, dtype=dtype,
+                            device=dev) for _ in range(2))
+    w = 0.2 + 0.79 * rng.rand(B, H, T, K)
+    if tiny:
+        w[:, :, ::7, ::3] = 1e-14
+    w = torch.as_tensor(w, dtype=dtype, device=dev)
+    v = torch.as_tensor(rng.randn(B, H, T, V), dtype=dtype, device=dev)
+    u = torch.as_tensor(rng.randn(H, K) * 0.3, dtype=torch.float32,
+                        device=dev)
+    do = torch.as_tensor(rng.randn(B, H, T, V) * 0.1, dtype=dtype,
+                         device=dev)
+    return r, k, v, w, u, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(1, 2, 40, 8, 8, 16), (2, 3, 130, 64, 64, 64),
+                                   (1, 2, 77, 64, 32, 32),
+                                   (1, 1, 50, 32, 128, 64),
+                                   (1, 2, 21, 12, 20, 16),
+                                   (2, 2, 300, 64, 64, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_rwkv6_backward_within_its_bound(cuda, shape, dtype):
+    """The backward kernel at T around its chunks, K != V, V = 128 (a
+    state of 4096, the most it takes): dr, dk, dv, dw and du within
+    ``rwkv6_bwd_bound`` of the plain version, two launches bit-identical,
+    counted once each; a larger state is refused."""
+    from repro_torch.kernels import rwkv6_scan as TRW
+    B, H, T, K, V, chunk = shape
+    args = _rwkv_bwd_args(B, H, T, K, V, dtype, cuda, T)
+    before = TRW.BWD_LAUNCHES
+    chip_smoke.check_lm_bwd("rwkv6_bwd", args, dict(chunk=chunk))
+    assert TRW.BWD_LAUNCHES == before + 2
+    big = _rwkv_bwd_args(1, 1, 8, 128, 64, dtype, cuda, 0)
+    with pytest.raises(ValueError, match="K V <= 4096"):
+        TRW.rwkv6_bwd_cuda(*big)
+
+
+@pytest.mark.cuda
+def test_rwkv6_backward_cuts_decays_below_1e_12_and_sees_its_control(cuda):
+    """dw is 0 exactly where w < 1e-12 (the reference's clamp), the rest
+    within the bound; the kernel run a chunk at a time (no state carried
+    across chunks) lies beyond it."""
+    from repro_torch.kernels import rwkv6_scan as TRW
+    args = _rwkv_bwd_args(1, 2, 200, 64, 64, torch.float32, cuda, 3,
+                          tiny=True)
+    chip_smoke.check_lm_bwd("rwkv6_bwd", args, dict(chunk=64))
+    got = TRW.rwkv6_bwd_cuda(*args, chunk=64)
+    w = args[3]
+    assert bool((got[3][w < 1e-12] == 0).all())
+    assert float(got[3][w >= 1e-12].abs().max()) > 0
+    r, k, v, w, u, do = args
+    parts = [TRW.rwkv6_bwd_cuda(*(x[:, :, s:s + 64].contiguous()
+                                  for x in (r, k, v, w)), u,
+                                do[:, :, s:s + 64].contiguous(), 64)
+             for s in range(0, 200, 64)]
+    bad = tuple(torch.cat([p[i] for p in parts], 2) for i in range(4)) + (
+        sum(p[4] for p in parts),)
+    assert chip_smoke.beyond(bad, got, chip_smoke.rwkv6_bwd_bound(
+        *args, 64)) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2_27b", "rwkv6_7b"])
+def test_smoke_train_step_on_card_equals_port_on_cpu(cuda, arch):
+    """One train step of a smoke config in float32 with the forward and
+    backward kernels on the card (remat "dots": the forward runs again
+    in the backward) against the port's step on the CPU from the same
+    weights and batch: the loss within 1e-5 relative, each gradient
+    leaf (through AdamW's first moment, 0.1 x the clipped gradient)
+    within 1e-4 x max, as the CPU tests hold the port to the
+    reference."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import flash_attention as TFA
+    from repro_torch.kernels import rwkv6_scan as TRW
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optim as O
+    from repro_torch import tree as TT
+    from repro_torch.train.train_loop import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke(arch).reduced(dtype="float32", remat="dots")
+    params = T.init_params(cfg, 0, device="cpu")
+    on_card = T.params_from_numpy(cfg, _as_numpy(params), device=cuda)
+    rng = np.random.RandomState(1)
+    batch = {k: torch.as_tensor(rng.randint(0, cfg.vocab, (2, 150)),
+                                dtype=torch.int32) for k in ("tokens",
+                                                             "labels")}
+    ocfg = O.OptConfig(kind="adamw", lr=1e-3, warmup=1, total_steps=10)
+    TK.reset_launch_counts()
+    _, s_card, m_card = make_train_step(cfg, ocfg)(
+        on_card, O.init_state(ocfg, on_card),
+        {k: v.to(cuda) for k, v in batch.items()})
+    counts = TK.launch_counts()
+    name = "rwkv6" if arch == "rwkv6_7b" else "flash_attention"
+    assert counts[name] == 2 * cfg.n_layers, counts     # forward, again
+    assert counts[name + "_bwd"] == cfg.n_layers, counts
+    _, s_cpu, m_cpu = make_train_step(cfg, ocfg)(
+        params, O.init_state(ocfg, params), batch)
+    want = float(m_cpu["loss"])
+    assert abs(float(m_card["loss"]) - want) <= 1e-5 * abs(want)
+    for (path, a), b in zip(TT.flatten(s_card["m"]), TT.leaves(s_cpu["m"])):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()) or err == 0, path
+    assert TFA.BWD_PATH == "cuda_cores" and TRW.BWD_PATH == "cuda_cores"
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_grad(cuda):
+    """Every kernel wrapper without a backward raises, naming its kernel,
+    on a CUDA input that requires grad in grad mode (its output would
+    carry no gradient); under torch.no_grad it launches."""
+    x = torch.ones(8, 2, device=cuda, requires_grad=True)
+    seg = torch.zeros(8, dtype=torch.int32, device=cuda)
+    keys = torch.zeros(8, 1, dtype=torch.int64, device=cuda)
+    idx = torch.zeros(8, dtype=torch.int64, device=cuda)
+    ok = torch.ones(8, dtype=torch.bool, device=cuda)
+    calls = {
+        "segment_reduce": lambda: TK.segment_reduce(x, seg, 1),
+        "segment_sum_first": lambda: TK.segment_sum_first(x, keys, seg, 1),
+        "pack_rows": lambda: TK.pack_rows(x, idx, ok),
+        "replicate_scatter": lambda: TK.replicate_scatter(x, idx, ok, 1),
+        "unpack_cols": lambda: TK.unpack_cols(x),
+        "gather_rows": lambda: TK.gather_rows(x, idx),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=name):
+            call()
+    with torch.no_grad():
+        before = TK.launch_counts()["segment_reduce"]
+        TK.segment_reduce(x, seg, 1)
+        assert TK.launch_counts()["segment_reduce"] == before + 1
+    # the two LM kernels differentiate instead
+    q = torch.randn(1, 2, 16, 16, device=cuda, requires_grad=True)
+    out = TK.flash_attention(q, q, q)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"

@@ -55,6 +55,11 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.configs.gemma2_27b, repro_torch.configs.rwkv6_7b\n"
         "import repro_torch.obs.explain, repro_torch.obs.feedback\n"
         "import repro_torch.serve.runtime, repro_torch.serve.faults\n"
+        "import repro_torch.train, repro_torch.train.optim\n"
+        "import repro_torch.train.train_loop, repro_torch.train.checkpoint\n"
+        "import repro_torch.train.elastic, repro_torch.tree\n"
+        "import repro_torch.data.pipeline, repro_torch.launch\n"
+        "import repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -100,12 +100,17 @@ def test_dispatch_counts_only_launches_and_refuses_other_devices():
     for r, k, v, w, u, chunk in chip_smoke.rwkv6_edge_cases(CPU,
                                                             large=False):
         TK.rwkv6_scan(r, k, v, w, u, chunk)
+    # the backward's plain versions on the CPU count nothing either
+    q = torch.randn(1, 2, 8, 4, requires_grad=True)
+    TK.flash_attention(q, q, q).sum().backward()
+    r = torch.rand(1, 1, 5, 3, requires_grad=True)
+    TK.rwkv6_scan(r, r, r, r, torch.zeros(1, 3)).sum().backward()
     assert TK.launch_counts() == {
         "segment_reduce": 0, "segment_sum_first": 0, "merge_positions": 0, "gather_rows": 0,
         "rle_expand": 0, "delta_unpack": 0, "bitunpack": 0,
         "dict_gather": 0, "member_mask": 0, "pack_rows": 0,
         "unpack_cols": 0, "replicate_scatter": 0, "flash_attention": 0,
-        "rwkv6": 0}
+        "flash_attention_bwd": 0, "rwkv6": 0, "rwkv6_bwd": 0}
     meta = torch.zeros(4, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="meta"):
         TK.merge_positions(meta, meta)
