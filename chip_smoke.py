@@ -294,6 +294,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
+SPLIT_BF16 = 2.0 ** -16        # |x - hi - lo| / |x|, x as two bf16 terms
 SFU_PER_S = 16 * 132 * 1.83e9  # H100 SXM transcendentals per second: 16
 #   a clock per SM (CUDA C++ Programming Guide, arithmetic instructions,
 #   compute capability 9.0) at the 1.83 GHz of the 989 TFLOP/s bf16 peak
@@ -375,9 +376,10 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:77"),
     # the backward kernels replace no TPU kernel: the reference takes
-    # jax.grad of these XLA functions
+    # jax.grad of these XLA functions; attention's has a source a path
     "flash_attention_bwd": dict(
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        source_tc="src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
         replaces="src/repro/models/layers.py:80"),
     "rwkv6_bwd": dict(
         source="src/repro_torch/kernels/csrc/rwkv6_bwd.cu",
@@ -878,8 +880,9 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def time_ms(fn, iters: int = 10) -> float:
-    fn()
+def time_ms(fn, iters: int = 10, warm: bool = True) -> float:
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -966,7 +969,8 @@ def complete_profile(run, iters: int = 1, tries: int = PROFILE_TRIES):
     return records, complete, attempt + 1
 
 
-def device_ms(fns: list, iters: list, tries: int = PROFILE_TRIES):
+def device_ms(fns: list, iters: list, tries: int = PROFILE_TRIES,
+              split: list = None):
     """Device time per call of each function of ``fns`` (None where a
     function is None): the time of every kernel and copy that it puts on
     the card, summed by ``torch.profiler`` over its ``iters`` calls. All
@@ -981,8 +985,11 @@ def device_ms(fns: list, iters: list, tries: int = PROFILE_TRIES):
     theirs; a function whose records are all lost leaves an empty part). Unlike CUDA events
     around back-to-back calls, it leaves out the host's time between
     launches, which sets the pace of calls that take a few microseconds
-    on the card. Returns (the times, or None each (not measured) when no
-    session of the profiler was complete; sessions)."""
+    on the card. ``split``, where given, is filled with one dict per
+    function of ``fns`` (empty where it is None or not measured): each
+    of its kernels' device time per call, by name. Returns (the times,
+    or None each (not measured) when no session of the profiler was
+    complete; sessions)."""
     from collections import Counter
     live = [(f, n) for f, n in zip(fns, iters) if f is not None]
     for f, _ in live:
@@ -995,21 +1002,28 @@ def device_ms(fns: list, iters: list, tries: int = PROFILE_TRIES):
                 f()
             torch.cuda._sleep(1000)
 
+    if split is not None:
+        split[:] = [{} for _ in fns]
     for attempt in range(tries):
         records, complete = profiled(run, pad_s=float(attempt))
-        parts, us, names = [], 0.0, Counter()
+        parts, us, names, per = [], 0.0, Counter(), Counter()
         for e in sorted(records, key=lambda e: e.time_range.start):
             if "spin_kernel" in e.name:
-                parts.append((us, names))
-                us, names = 0.0, Counter()
+                parts.append((us, names, per))
+                us, names, per = 0.0, Counter(), Counter()
             else:
                 us += e.time_range.elapsed_us()
+                per[e.name] += e.time_range.elapsed_us()
                 if not e.name.startswith(("Memcpy", "Memset")):
                     names[e.name] += 1
         if complete and len(parts) == len(live) and all(
                 us > 0 and cnt and all(c % n == 0 for c in cnt.values())
-                for (us, cnt), (_, n) in zip(parts, live)):
-            ms = iter(us / n / 1e3 for (us, _), (_, n) in zip(parts, live))
+                for (us, cnt, _), (_, n) in zip(parts, live)):
+            ms = iter(us / n / 1e3 for (us, _, _), (_, n) in zip(parts, live))
+            if split is not None:
+                by = iter({k: t / n / 1e3 for k, t in p.items()}
+                          for (_, _, p), (_, n) in zip(parts, live))
+                split[:] = [{} if f is None else next(by) for f in fns]
             return [None if f is None else next(ms) for f in fns], attempt + 1
     return [None] * len(fns), tries
 
@@ -3873,6 +3887,73 @@ def rwkv6_edge_cases(dev, large: bool = True) -> list:
     return cases
 
 
+# flash_attention_bwd's edge cases, each in f32 and bf16:
+# (B, H, Hkv, Sq, Sk, D, kwargs)
+ATTN_BWD_EDGE_SHAPES = [
+    (1, 4, 2, 63, 63, 16, dict(causal=True)),
+    (2, 4, 2, 130, 130, 64, dict(causal=True, window=40, softcap=20.0)),
+    (1, 8, 2, 129, 129, 128, dict(causal=True, softcap=50.0)),
+    (1, 2, 1, 65, 65, 256, dict(causal=True, window=64)),
+    (1, 4, 4, 70, 200, 64, dict(causal=False)),
+    (1, 2, 2, 100, 100, 24, dict(causal=False, window=30)),
+    (1, 14, 2, 200, 200, 64, dict(causal=True, softcap=30.0)),  # group 7
+    (1, 2, 1, 64, 64, 64, dict(causal=True)),       # one 64-row tile
+]
+
+
+def attention_bwd_edge_cases(dev) -> list:
+    """((q, k, v, o, lse, do), kwargs) for ``flash_attention_bwd``: GQA
+    groups 1-7, D from 16 to 256, causal, window and softcap, Sq != Sk
+    and one 64-row tile, in f32 and bf16, so that both of
+    ``bwd_kernel_path``'s paths run: the tensor cores (bf16 at D = 16, 64,
+    128) and the CUDA cores (f32, and bf16 at D = 24 and 256); o and lse
+    from the forward kernel."""
+    from repro_torch.kernels import flash_attention as FA
+    rng = np.random.RandomState(13)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for B, H, Hkv, Sq, Sk, D, kw in ATTN_BWD_EDGE_SHAPES:
+            q, k, v = (torch.as_tensor(rng.randn(B, h, s, D), dtype=dt,
+                                       device=dev)
+                       for h, s in ((H, Sq), (Hkv, Sk), (Hkv, Sk)))
+            do = torch.as_tensor(rng.randn(B, H, Sq, D) * 0.1, dtype=dt,
+                                 device=dev)
+            o, lse = FA.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+            cases.append(((q, k, v, o, lse, do), dict(kw)))
+    return cases
+
+
+def rwkv6_bwd_edge_cases(dev) -> list:
+    """((r, k, v, w, u, do), chunk, what) for ``rwkv6_bwd``, each in f32
+    and bf16: T around its chunks with K != V and a ragged tail, K = V =
+    64 over chunks of 64, channels whose every decay is 1e-4 or 1e-9
+    beside decays in [0.2, 0.99], and decays of 1e-14 (cut: dw exactly 0
+    there)."""
+    rng = np.random.RandomState(14)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for (B, H, T, K, V, chunk), what in (
+                ((1, 2, 77, 64, 32, 32), "mid"),
+                ((2, 2, 150, 64, 64, 64), "mid"),
+                ((2, 2, 150, 64, 64, 64), "small"),
+                ((1, 2, 200, 64, 64, 64), "tiny")):
+            r, k = (rng.randn(B, H, T, K) * 0.5 for _ in range(2))
+            w = 0.2 + 0.79 * rng.rand(B, H, T, K)
+            if what == "small":        # channels at 1e-4 and at 1e-9
+                w[..., 1::4] = 1e-4
+                w[..., 2::4] = 1e-9
+            if what == "tiny":
+                w[:, :, ::7, ::3] = 1e-14
+            v = rng.randn(B, H, T, V)
+            do = rng.randn(B, H, T, V) * 0.1
+            r, k, w, v, do = (torch.as_tensor(a, dtype=dt, device=dev)
+                              for a in (r, k, w, v, do))
+            u = torch.as_tensor(rng.randn(H, K) * 0.3, dtype=torch.float32,
+                                device=dev)
+            cases.append(((r, k, v, w, u, do), chunk, what))
+    return cases
+
+
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """Elementwise size of one bf16 unit in the last place at |x|."""
     a = x.float().abs().clamp(min=2.0 ** -126)
@@ -4096,7 +4177,10 @@ def phase_lm_kernels(dev) -> None:
     """Phase 2's LM part: ``flash_attention`` and ``rwkv6`` over their
     edge cases against their plain versions: within the f32 rounding
     bound (``attention_bound``, ``rwkv6_bound``) plus one bf16 ulp of
-    the output in bf16, and two launches bit-identical."""
+    the output in bf16, and two launches bit-identical; then their
+    backward kernels the same way (``attention_bwd_bound``,
+    ``rwkv6_bwd_bound``), the attention backward on both of its paths
+    (phase R's bf16 calls at D = 128 take the tensor cores only)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rwkv6_scan as RW
     worst, n = {}, {}
@@ -4120,11 +4204,32 @@ def phase_lm_kernels(dev) -> None:
                                       dict(chunk=args[5]))
         worst[key] = max(worst.get(key, 0), share)
         n[key] = n.get(key, 0) + 1
+    # the backward kernels: both attention paths, RWKV-6's small decays
+    before = dict(FA.BWD_PATH_LAUNCHES)
+    for args, kw in attention_bwd_edge_cases(dev):
+        _, share, _ = check_lm_bwd("flash_attention_bwd", args, kw)
+        path = FA.bwd_kernel_path(args[0].dtype, args[0].shape[-1])
+        key = f"flash_attention_bwd ({path.replace('_', ' ')})"
+        worst[key] = max(worst.get(key, 0), share)
+        n[key] = n.get(key, 0) + 1
+    ran = {p: FA.BWD_PATH_LAUNCHES[p] - before[p] for p in before}
+    assert all(ran.values()), ran           # both backward paths ran
+    key = f"rwkv6_bwd ({RW.BWD_PATH.replace('_', ' ')})"
+    for args, chunk, what in rwkv6_bwd_edge_cases(dev):
+        _, share, _ = check_lm_bwd("rwkv6_bwd", args, dict(chunk=chunk))
+        if what == "tiny":
+            w, dw = args[3], RW.rwkv6_bwd_cuda(*args, chunk=chunk)[3]
+            assert bool((dw[w < 1e-12] == 0).all()), "dw not 0 where cut"
+        worst[key] = max(worst.get(key, 0), share)
+        n[key] = n.get(key, 0) + 1
     log(f"[2 kernels] LM edge cases within the f32 rounding bound of their "
         f"plain versions (+1 bf16 ulp in bf16), two launches "
         f"bit-identical: "
         + ", ".join(f"{k} {n[k]} cases, worst {worst[k]:.3g} of it"
-                    for k in worst))
+                    for k in worst)
+        + f"; flash_attention_bwd's launches by path there: tensor cores "
+        f"{ran['tensor_cores']}, CUDA cores {ran['cuda_cores']}; rwkv6_bwd's "
+        f"dw 0 wherever w < 1e-12")
 
 
 @contextlib.contextmanager
@@ -4343,12 +4448,21 @@ def attention_bwd_bound(q, k, v, o, lse, do, causal=True, window=None,
     eps_P P |dO| and (G Sq + 1) u sum P |dO|. Both versions sum their
     products in sequence (the kernel a key or query tile at a time; a
     GEMM along its reduction), so the sums' terms are linear in their
-    length."""
+    length. Where the call takes the tensor cores (``bwd_kernel_path``),
+    the kernel alone takes dS and P into its products as two bf16 terms,
+    hi = bf16(x) and lo = bf16(x - hi). bf16 keeps 8 significant bits,
+    so its unit roundoff is 2^-8: |x - hi| <= 2^-8 |x|, and |x - hi -
+    lo| <= 2^-8 |x - hi| <= 2^-16 |x| (x - hi is exact in f32). That
+    adds 2^-16 scale sum |dS| |k| to dq, 2^-16 scale sum |dS| |q| to dk
+    and 2^-16 sum P |dO| to dv (once: the plain version has no such
+    term). Below 255 keys it is larger than the sum term (Sk + 1) u."""
+    from repro_torch.kernels import flash_attention as FA
     B, H, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     G = H // Hkv
     scale = scale if scale is not None else D ** -0.5
     u = U_F32
+    split = FA.bwd_kernel_path(q.dtype, D) == "tensor_cores"
     bq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     bk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     bv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
@@ -4365,6 +4479,11 @@ def attention_bwd_bound(q, k, v, o, lse, do, causal=True, window=None,
         bv[b, j] = 2 * (torch.einsum("gqk,gqd->kd", eps_p * p, doa)
                         + (G * Sq + 1) * u * torch.einsum(
                             "gqk,gqd->kd", p, doa))
+        if split:
+            bq[b, hs] += SPLIT_BF16 * scale * torch.matmul(dsa, ka)
+            bk[b, j] += SPLIT_BF16 * scale * torch.einsum(
+                "gqk,gqd->kd", dsa, qa)
+            bv[b, j] += SPLIT_BF16 * torch.einsum("gqk,gqd->kd", p, doa)
     return bq, bk, bv
 
 
@@ -4396,7 +4515,12 @@ def rwkv6_bwd_bound(r, k, v, w, u, do, chunk: int) -> tuple:
     more ops, and du sums T steps and then B rows: a relative error of
     u (2 T + K + V + B + 16) per evaluation, twice that between two,
     times M, the plain backward run on |r|, |k|, |v|, |u|, |do| (the
-    sum of the terms' magnitudes)."""
+    sum of the terms' magnitudes). The kernels' chunks (C steps) cross
+    from one to the next by one FMA with the product of the chunk's C
+    decays (at most C roundings) where the plain version takes the 2 C
+    roundings of the chunk's steps, so a term crosses no more roundings
+    there (one more, within the 16). No logarithm or power of a decay
+    enters, so no exponent term (``rwkv6_bound``'s) either."""
     from repro_torch.kernels import ref as R
     B, H, T, K = r.shape
     V = v.shape[3]
@@ -4405,6 +4529,27 @@ def rwkv6_bwd_bound(r, k, v, w, u, do, chunk: int) -> tuple:
                         w.float(), u.float().abs(), do.float().abs(),
                         chunk)
     return tuple(rel * m.double() for m in M)
+
+
+def rwkv6_bwd_stage_bytes(r, v, u, chunk: int) -> dict:
+    """The least bytes each of ``rwkv6_bwd``'s three kernels moves, each
+    of its inputs read once and each output written once, by kernel name:
+    ``rwkv6_bwd_local`` reads r, k, w, v, do and writes each chunk's L, M
+    (f32, K x V) and decays; ``rwkv6_bwd_carry`` reads those and writes
+    S at every chunk start and G at every chunk end (f32, K x V);
+    ``rwkv6_bwd_out`` reads r, k, w, v, do, u, S and G and writes dr, dk,
+    dw, dv and du's partials per chunk."""
+    B, H, T, K = r.shape
+    V = v.shape[3]
+    NC = -(-T // min(chunk, T, 64))
+    e = r.element_size()
+    inputs = e * B * H * T * (3 * K + 2 * V)
+    states = 4 * B * H * NC * K * V
+    decays = 4 * B * H * NC * K
+    return {"rwkv6_bwd_local": inputs + 2 * states + decays,
+            "rwkv6_bwd_carry": 2 * (2 * states) + decays,
+            "rwkv6_bwd_out": inputs + 4 * u.numel() + 2 * states
+            + e * B * H * T * (3 * K + V) + decays}
 
 
 def lm_bwd_fns(name: str, args: tuple, kw: dict):
@@ -4466,8 +4611,9 @@ def lm_bwd_fns(name: str, args: tuple, kw: dict):
         tols = rwkv6_bwd_bound(r, k, v, w, u, do, chunk)
         note = (f"twice the forward's chunked products: {flops / 1e9:.1f} "
                 f"GFLOP, {bound_ops * 1e3:.4f} ms on the tensor cores in "
-                f"TF32; the kernel's chunk-start states ({states / 1e6:.0f} "
-                f"MB, written and read back) are its own scratch, not in "
+                f"TF32; the kernels' chunk-start states and chunk-end "
+                f"gradients (2 x {states / 1e6:.0f} MB, written, carried "
+                f"in place and read back) are their own scratch, not in "
                 f"the bound")
     bound_bytes = nbytes / HBM_BYTES_PER_S
     by = "operations" if bound_ops >= bound_bytes else "bytes"
@@ -4499,10 +4645,13 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
 
 
-def check_lm_bwd(name: str, args: tuple, kw: dict) -> tuple:
+def check_lm_bwd(name: str, args: tuple, kw: dict,
+                 keep: list = None) -> tuple:
     """The backward kernel twice (bit-identical) and its plain version on
     the same inputs, each gradient within its stated bound (+1 bf16 ulp
-    in bf16). Returns (max |err|, the largest share of a bound, fns)."""
+    in bf16). Returns (max |err|, the largest share of a bound, fns);
+    ``keep``, where given, gets the plain version's gradients appended,
+    for controls on the same inputs."""
     fns = lm_bwd_fns(name, args, kw)
     kern, plain, tols = fns[0], fns[1], fns[7]
     a, b = kern(), kern()
@@ -4513,6 +4662,8 @@ def check_lm_bwd(name: str, args: tuple, kw: dict) -> tuple:
     shares = [within(x, y, t) for x, y, t in zip(a, want, tols)]
     err = max(float((x.double() - y.double()).abs().max())
               for x, y in zip(a, want))
+    if keep is not None:
+        keep.append(want)
     del a, b, want
     return err, max(shares), fns
 
@@ -4532,29 +4683,49 @@ def beyond(got: tuple, want: tuple, tols: tuple) -> float:
 
 
 def measure_lm_bwd(name: str, args: tuple, kw: dict, launches: int,
-                   tag: str, label: str) -> dict:
+                   tag: str, label: str, keep: list = None) -> dict:
     """One JSON record of a backward kernel at its captured arguments:
     within its bound of the plain version, two launches bit-identical,
     timed by CUDA events and the profiler beside the plain version, the
-    library yardstick and the bound."""
+    library yardstick and the bound. ``keep``, where given, gets the
+    plain version's gradients and the bounds appended."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rwkv6_scan as RW
-    err, share, fns = check_lm_bwd(name, args, kw)
-    kern, plain, library, lib_label, bound_ms, by, note, _ = fns
+    err, share, fns = check_lm_bwd(name, args, kw, keep)
+    kern, plain, library, lib_label, bound_ms, by, note, tols = fns
+    if keep is not None:
+        keep.append(tols)
     # rwkv6's plain backward is a host-paced loop over T: not profiled
+    split = []
     (dev_ms, plain_dev, lib_dev), dev_s = device_ms(
         [kern, plain if name == "flash_attention_bwd" else None, library],
-        [2, 1, 2], tries=LM_REC_PROFILE_TRIES)
+        [2, 1, 2], tries=LM_REC_PROFILE_TRIES, split=split)
+    stage_bytes = (rwkv6_bwd_stage_bytes(args[0], args[2], args[4],
+                                         int(kw.get("chunk", 64)))
+                   if name == "rwkv6_bwd" else {})
+    stages = {}
+    for op, t in split[0].items():
+        short = op.split("(")[0].split("<")[0].replace("void ", "").strip()
+        stages[short] = dict(device_ms=t)
+        if short in stage_bytes:
+            stages[short]["bound_ms"] = \
+                stage_bytes[short] / HBM_BYTES_PER_S * 1e3
     meta = KERNELS[name]
-    rec = dict(name=name, route="cuda", source=meta["source"],
+    path = (FA.bwd_kernel_path(args[0].dtype, args[0].shape[-1])
+            if name == "flash_attention_bwd" else RW.BWD_PATH)
+    rec = dict(name=name, route="cuda",
+               source=meta["source_tc" if path == "tensor_cores"
+                           else "source"],
                replaces=meta["replaces"], launches=launches,
                max_abs_err=err, ms=time_ms(kern, iters=3),
-               plain_ms=time_ms(plain, iters=1), device_ms=dev_ms,
+               # rwkv6's host-paced plain backward takes no warm-up call
+               plain_ms=time_ms(plain, iters=1,
+                                warm=name == "flash_attention_bwd"),
+               device_ms=dev_ms,
                plain_device_ms=plain_dev, bound_ms=bound_ms, bound_by=by,
                library_ms=time_ms(library, iters=3) if library else None,
-               library_device_ms=lib_dev, shape=label,
-               path=FA.BWD_PATH if name == "flash_attention_bwd"
-               else RW.BWD_PATH)
+               library_device_ms=lib_dev, shape=label, path=path,
+               stages=stages)
     shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
     lib = (f"{_ms(rec['library_ms'])} ms, {_ms(lib_dev)} on the device, "
            if library else "")
@@ -4567,6 +4738,13 @@ def measure_lm_bwd(name: str, args: tuple, kw: dict, launches: int,
         f"device), bound {bound_ms:.4f} ms by {by} ({note}; "
         f"{bound_ms / rec['ms']:.1%} of bound; path {rec['path']}), library "
         f"{lib}({lib_label}); {launches} launches in the warm steps")
+    log(f"  [{tag}] {name} ({label}): its kernels' device time a call "
+        f"(profile session {dev_s}): "
+        + ("; ".join(f"{k} {v['device_ms']:.4f} ms"
+                     + (f" (bound {v['bound_ms']:.4f} ms by bytes: "
+                        f"{v['device_ms'] and v['bound_ms'] / v['device_ms']:.1%}"
+                        f" of it)" if "bound_ms" in v else "")
+                     for k, v in stages.items()) or "not measured"))
     return rec
 
 
@@ -5185,16 +5363,15 @@ def reckoned_peak_gb(cfg, params, state, B: int, S: int) -> str:
             f"{tot / 1e9:.2f} GB before activations")
 
 
-def attention_bwd_controls(tag: str, args: tuple, kw: dict) -> None:
+def attention_bwd_controls(tag: str, args: tuple, kw: dict, want: tuple,
+                           tols: tuple) -> None:
     """The two faults of a flash_attention backward, each put into it at
     the captured arguments: dk and dv without the GQA sum (the kernel
     over the KV heads repeated to the query heads, one query head of
     each group kept), and the softcap's factor dropped (the plain
-    formulas without it). Each must lie beyond the bound."""
+    formulas without it). Each must lie beyond the bound ``tols`` of
+    the plain version's gradients ``want`` there."""
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ref as R
-    want = R.attention_bwd_ref(*args, **kw)
-    tols = attention_bwd_bound(*args, **kw)
     _, dk, dv = attention_bwd_no_gqa_sum(FA.flash_attention_bwd_cuda,
                                          *args, **kw)
     gqa = beyond((want[0], dk, dv), want, tols)
@@ -5206,18 +5383,17 @@ def attention_bwd_controls(tag: str, args: tuple, kw: dict) -> None:
     assert gqa > 1 and cap > 1, (gqa, cap)
 
 
-def rwkv6_bwd_controls(tag: str, args: tuple, kw: dict) -> None:
+def rwkv6_bwd_controls(tag: str, args: tuple, kw: dict, want: tuple,
+                       tols: tuple) -> None:
     """At the captured arguments: the kernel run a chunk at a time (no
-    state carried back across chunks) lies beyond the bound; and with
-    one decay in seven set to 1e-14 (below the reference's 1e-12 clamp)
-    dw is 0 exactly there, the rest within the bound."""
-    from repro_torch.kernels import ref as R
+    state carried back across chunks) lies beyond the bound ``tols`` of
+    the plain version's gradients ``want``; and with one decay in seven
+    set to 1e-14 (below the reference's 1e-12 clamp) dw is 0 exactly
+    there, the rest within the bound."""
     from repro_torch.kernels import rwkv6_scan as RW
     r, k, v, w, u, do = args
     C = kw["chunk"]
     T = r.shape[2]
-    want = R.rwkv6_bwd_ref(*args, C)
-    tols = rwkv6_bwd_bound(*args, C)
     parts = [RW.rwkv6_bwd_cuda(*(x[:, :, s:s + C].contiguous()
                                  for x in (r, k, v, w)), u,
                                do[:, :, s:s + C].contiguous(), C)
@@ -5355,6 +5531,7 @@ def phase_train(tag: str, arch: str, B: int, S: int, kernel: str,
             warm.append(sync_s(t0) * 1e3)
     counts = kops.launch_counts()
     paths = dict(FA.PATH_LAUNCHES)
+    bwd_paths = dict(FA.BWD_PATH_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     n_mix = cfg.n_layers
     fwd_per_step = n_mix * (2 if cfg.remat != "none" else 1)
@@ -5365,10 +5542,17 @@ def phase_train(tag: str, arch: str, B: int, S: int, kernel: str,
         f"steps; reckoned: {reckoned_peak_gb(cfg, params, state, B, S)}); "
         f"losses {', '.join(f'{x:.4f}' for x in losses)}; launches in the 3 "
         f"warm steps: {kernel} {counts[kernel]} (by path {paths if kernel == 'flash_attention' else 'tensor cores'}), "
-        f"{kernel}_bwd {counts[kernel + '_bwd']} (CUDA cores); the "
-        f"pipeline's kernels none (batches are slices of its stream)")
+        f"{kernel}_bwd {counts[kernel + '_bwd']} "
+        f"({'chunk-parallel, CUDA cores' if kernel == 'rwkv6' else 'by path below'}); "
+        f"flash_attention_bwd by path: tensor cores "
+        f"{bwd_paths['tensor_cores']}, CUDA cores {bwd_paths['cuda_cores']};"
+        f" the pipeline's kernels none (batches are slices of its stream)")
     assert counts[kernel] == 3 * fwd_per_step, counts
     assert counts[kernel + "_bwd"] == 3 * n_mix, counts
+    if kernel == "flash_attention":
+        # bf16 at D = 128: every backward call on the tensor cores
+        assert bwd_paths == {"tensor_cores": 3 * n_mix, "cuda_cores": 0}, \
+            bwd_paths
     other = "rwkv6" if kernel == "flash_attention" else "flash_attention"
     assert counts[other] == counts[other + "_bwd"] == 0, counts
     assert all(np.isfinite(losses))
@@ -5458,11 +5642,14 @@ def phase_train(tag: str, arch: str, B: int, S: int, kernel: str,
                 else "global layer"
         else:
             label = "layer 0"
-        recs.append(measure_lm_bwd(name, args, kw, counts[name], tag, label))
+        kept = []
+        recs.append(measure_lm_bwd(name, args, kw, counts[name], tag, label,
+                                   keep=kept))
         if name == "flash_attention_bwd":
-            attention_bwd_controls(tag, args, kw)
+            attention_bwd_controls(tag, args, kw, *kept)
         else:
-            rwkv6_bwd_controls(tag, args, kw)
+            rwkv6_bwd_controls(tag, args, kw, *kept)
+        del kept
         torch.cuda.empty_cache()
     del calls
     batch = pipe.batch_at(6)

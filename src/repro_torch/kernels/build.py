@@ -4,8 +4,10 @@ Every ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` and loaded with
 ``ctypes``. The libraries are built at first use into
 ``build/repro_torch_kernels/`` at the root of the checkout, named by a
-hash of their source so that an edited source is rebuilt. All missing
-libraries are compiled at once, one ``nvcc`` process per source.
+hash of their source and of the headers it includes from ``csrc/``
+(its ``#include "..."`` lines, followed into those headers) so that an
+edited source or header rebuilds the libraries that use it and no other. All missing libraries are
+compiled at once, one ``nvcc`` process per source.
 
 Nothing here runs at import time: the CPU tests import every module on
 a machine without ``nvcc``.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,9 +47,27 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _local_headers(src: bytes, seen: Optional[list] = None) -> list:
+    """The ``csrc/`` headers that ``src`` includes with quotes, each once,
+    in the order first met, with the headers they include in turn."""
+    seen = [] if seen is None else seen
+    for m in _INCLUDE.finditer(src):
+        name = m.group(1).decode()
+        path = CSRC / name
+        if name not in seen and path.exists():
+            seen.append(name)
+            _local_headers(path.read_bytes(), seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join((CSRC / h).read_bytes() for h in _local_headers(src))
+    digest = hashlib.sha1(src + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -31,8 +31,9 @@
 //   an f32 dot product. P stays f32 for the row sums; for P.V it is
 //   split into hi = bf16(P) and lo = bf16(P - hi) (P - hi is exact), and
 //   hi.V + lo.V go into one f32 accumulator, so that P is carried to
-//   |P - hi - lo| <= 2^-18 P and the output moves by at most 2^-18
-//   max|v| against an f32 P.V. Design:
+//   |P - hi - lo| <= 2^-8 |P - hi| <= 2^-16 P (bf16's unit roundoff is
+//   2^-8) and the output moves by at most 2^-16 max|v| against an f32
+//   P.V. Design:
 //     - one warpgroup (4 warps) per (64-row query tile, h, b), two per
 //       SM; S (64 x 64 keys, 64 x 32 at D = 256) comes from Q and K in
 //       shared memory (wgmma m64n64k16), and its fragments, converted in
@@ -273,278 +274,7 @@ __global__ void __launch_bounds__(THREADS)
 // the tensor-core path: bf16, D a multiple of 16
 // ---------------------------------------------------------------------------
 
-#define TC_THREADS 128   // one warpgroup
-#define LOG2E 1.4426950408889634f
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared memory; src_bytes = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// shared-memory writes made visible to the tensor cores' reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma: the warpgroup's 64 x N products, issued asynchronously and
-// completed in groups (wg_wait<n>: all but the newest n groups done).
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pins fragments at this point of the program for the compiler, which
-// does not know that a product writes them after its issue: placed after
-// the wait that completes them and before the issue that uses them.
-template <int N>
-__device__ __forceinline__ void wg_pin(float (&d)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-}
-
-// Shared-memory operand descriptor of a tile in the 128-byte swizzled
-// layout below: sbo is the byte stride between groups of 8 rows (1024);
-// lbo, for an MN-major tile, the byte stride between its 64-column
-// blocks (a K-major tile's depth stays inside one block).
-__device__ __forceinline__ uint64_t wg_desc(const bf16* p, int lbo,
-                                            int sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-// Accumulator fragments (d[j][e], as mma.sync's m16n8 per warp): warp w,
-// lane t, g = t / 4, tg = t % 4 holds rows 16 w + g (e = 0, 1) and
-// 16 w + g + 8 (e = 2, 3) of columns 8 j + 2 tg (+1). The register A
-// operand (a 64 x 16 slice): a = {(g, 2tg..), (g+8, 2tg..), (g, 8+2tg..),
-// (g+8, 8+2tg..)} of the warp's 16 rows.
-// wg_ss: d (64 x N) = a . b^T over 16 columns, a and b K-major tiles in
-// shared memory (scale_d = 0: d is overwritten). wg_rs: d (64 x N) +=
-// a . b, a in registers, b an MN-major tile in shared memory.
-__device__ __forceinline__ void wg_ss(float (&d)[4][4], uint64_t da,
-                                      uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wg_ss(float (&d)[8][4], uint64_t da,
-                                      uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wg_rs(float (&d)[8][4],
-                                      const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-__device__ __forceinline__ void wg_rs(float (&d)[16][4],
-                                      const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-__device__ __forceinline__ void wg_rs(float (&d)[32][4],
-                                      const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, 1, 1;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
-        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
-        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
-        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
-        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
-        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
-        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
-        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
-        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
-        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
-        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
-        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
-        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
-        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
-        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
-        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
-        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// hi = bf16(x0, x1) packed; lo = bf16(x - hi) packed (x - hi is exact).
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-
-// 2^x on the SFU (relative error about 2^-22; below 2^-126 flushed to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 1 / x on the SFU (relative error about 2^-23)
-__device__ __forceinline__ float rcp(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// tanh(|y|) for |y| < 0.6: an odd polynomial, minimax for the relative
-// error (1.3 ulps in f32), on the FMA units only.
-__device__ __forceinline__ float tanh_small(float a) {
-  const float z = a * a;
-  float p = -6.14530686e-3f;
-  p = fmaf(p, z, 2.10001227e-2f);
-  p = fmaf(p, z, -5.38409501e-2f);
-  p = fmaf(p, z, 1.33325517e-1f);
-  p = fmaf(p, z, -3.33333194e-1f);
-  return fmaf(a * z, p, a);
-}
-
-// tanh(y) to a few f32 ulps, without branches: tanh_small below |y| =
-// 0.6, above it 1 - 2 / (1 + e^(2|y|)) (two SFU operations), whose
-// absolute error of about 2^-22 is a few ulps of a result above 0.53.
-// FULL = false takes tanh_small alone, for |y| < 0.6: the same bits.
-template <bool FULL>
-__device__ __forceinline__ float tanh_f32(float y) {
-  const float a = fabsf(y);
-  const float small = tanh_small(a);
-  if (!FULL) return copysignf(small, y);
-  const float large = fmaf(-2.0f, rcp(1.0f + ex2(a * (2.0f * LOG2E))), 1.0f);
-  return copysignf(a < 0.6f ? small : large, y);
-}
+#include "wgmma_bf16.cuh"
 
 // A tile's scores, in place, in log2 units: x = s * mul (mul = scale *
 // log2(e)), or cap_l2e * tanh(s * mul) with a softcap (mul = scale /
@@ -574,43 +304,6 @@ __device__ __forceinline__ void tc_scores(float (&s)[NS][4], float (&mx)[2],
       s[j][e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
     }
-}
-
-// With a softcap, whether some lane of the warp has a tanh argument
-// |s * mul| of 0.6 or more (else the polynomial alone gives the same
-// bits, with no SFU work).
-template <bool SOFTCAP, int NS>
-__device__ __forceinline__ bool tc_needs_full_tanh(const float (&s)[NS][4],
-                                                   float mul) {
-  if (!SOFTCAP) return false;
-  float amax = 0.0f;
-#pragma unroll
-  for (int j = 0; j < NS; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(s[j][e] * mul));
-  return __any_sync(0xffffffffu, !(amax < 0.6f));
-}
-
-// Rows [row0, row0 + R) of a (S, D) bf16 matrix into an R x DP tile in
-// the 128-byte swizzled layout of the tensor cores: 64-column blocks,
-// each R rows of 128 bytes (block b at b * R * 128 bytes, 1024-byte
-// aligned), with the 16-byte chunk c of row r at chunk c ^ (r % 8), so
-// that the eight rows of a group spread over all banks. By cp.async in
-// 16-byte pieces, zero beyond S rows and D columns.
-template <int R, int DP>
-__device__ __forceinline__ void tc_load_tile(bf16* dst, const bf16* src,
-                                             int64_t base, int row0, int S,
-                                             int D) {
-  constexpr int CH = DP / 8;
-  for (int e = threadIdx.x; e < R * CH; e += TC_THREADS) {
-    const int r = e / CH, ch = e % CH;
-    const int g = row0 + r;
-    const bool ok = g < S && ch * 8 < D;
-    const bf16* p = ok ? src + base + (int64_t)g * D + ch * 8 : src;
-    cp_async16(smem_u32(dst + ((ch >> 3) * R + r) * 64 +
-                        (((ch & 7) ^ (r & 7)) << 3)),
-               p, ok ? 16 : 0);
-  }
 }
 
 // One warpgroup per (64-row query tile, h, b); key tiles of BKT keys.

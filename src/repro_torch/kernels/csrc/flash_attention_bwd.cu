@@ -1,6 +1,7 @@
 // Tiled attention backward for Hopper (sm_90a): the gradient of
-// csrc/flash_attention.cu's forward, built as a library of its own so
-// that the two compile in parallel.
+// csrc/flash_attention.cu's forward, built as libraries of their own so
+// that they compile in parallel: this file holds the CUDA-core path,
+// csrc/flash_attention_bwd_tc.cu the tensor-core path.
 //
 // No TPU kernel is replaced here: the reference differentiates its XLA
 // chunked_attention (src/repro/models/layers.py) and the Pallas kernel
@@ -14,21 +15,32 @@
 // with dk and dv summed over the H / Hkv query heads of a KV head.
 //
 // What bounds it: operations, 5 products of 2 D flops per unmasked pair
-// and head (the dq kernel forms S and dP again, so the two kernels run
-// 7). Both kernels are the forward's CUDA-core design (256 threads, a
-// thread's 4x4 block of a 64x64 score tile, 4 rows x D/16 columns of
-// its output tile, f32 tiles in shared memory read as float4) in f32
-// for bf16 and f32 inputs alike; the tensor cores are later work.
+// and head; the two kernels of either path run 7 or more (S and dP are
+// formed in both), and one exp per pair in each.
 //
-// No sum needs an atomic, so two launches are bit-identical:
-// * fa_bwd_dq_kernel: one block per (64-row query tile, h, b) walks the
-//   key tiles the masks leave (the forward's), V then K through one
-//   buffer, and writes dq; it also writes Delta for its rows.
-// * fa_bwd_dkdv_kernel, launched after it: one block per (64-key tile,
-//   KV head, b) keeps its K and V tiles, walks the group's query heads
-//   and, for each, the query tiles that see a key of the tile, and sums
-//   dk and dv in registers; the query tile's Q and dO take turns in one
-//   buffer (Q twice), so that D = 256 fits in shared memory.
+// Two kernels a call, no sum needs an atomic, so two launches are
+// bit-identical:
+// * dq kernel: one block per (64-row query tile, h, b) walks the key
+//   tiles the masks leave (the forward's) and writes dq; it also writes
+//   Delta for its rows, once, for both kernels;
+// * dk/dv kernel, launched after it: one block per (64-key tile, KV
+//   head, b) keeps its K and V tiles, walks the group's query heads (1
+//   to 8, 7 among them) and, for each, the query tiles that see a key of
+//   the tile, and sums dk and dv over them in registers.
+//
+// Two paths, chosen by kernels/flash_attention.py:bwd_kernel_path (each
+// library launches its own and refuses nothing else), never as a
+// fallback: the tensor cores for bf16 with D a multiple of 16 and at most
+// 128; the CUDA cores (here) for the rest.
+//
+// CUDA cores (fa_bwd_dq_kernel, fa_bwd_dkdv_kernel): f32 inputs, bf16
+// with D not a multiple of 16, and D above 128 (at D = 256 dk and dv of a
+// 64-key tile would be 128 f32 registers a thread of a warpgroup each;
+// Gemma 7B's head). The forward's CUDA-core design (256 threads, a
+// thread's 4x4 block of a 64x64 score tile, 4 rows x D/16 columns of its
+// output tile, f32 tiles in shared memory read as float4) in f32; the
+// dk/dv kernel's query tile Q and dO take turns in one buffer (Q twice),
+// so that D = 256 fits in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -423,11 +435,11 @@ static int launch_bwd_d(const void* q, const void* k, const void* v,
 }
 
 // q, o, dout, dq: (B, H, Sq, D); k, v, dk, dv: (B, Hkv, Sk, D), of one
-// dtype; lse and delta (scratch, written here): (B, H, Sq) f32; all
-// contiguous. The other arguments as flash_attention_launch's, with the
-// lse its call wrote. Launches fa_bwd_dq_kernel, then
-// fa_bwd_dkdv_kernel; returns cudaGetLastError() (nonzero: not
-// launched).
+// dtype (is_bf16 != 0: bfloat16, else float32); lse and delta (scratch,
+// written here): (B, H, Sq) f32; all contiguous. The other arguments as
+// flash_attention_launch's, with the lse its call wrote. Launches
+// fa_bwd_dq_kernel, then fa_bwd_dkdv_kernel; returns cudaGetLastError()
+// (nonzero: not launched).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const float* lse, const void* dout, void* dq, void* dk, void* dv,

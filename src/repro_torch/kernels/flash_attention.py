@@ -1,5 +1,6 @@
 """Tiled online-softmax attention on Hopper (``csrc/flash_attention.cu``;
-the backward in ``csrc/flash_attention_bwd.cu``).
+the backward in ``csrc/flash_attention_bwd.cu`` and
+``csrc/flash_attention_bwd_tc.cu``).
 
 The Pallas kernel's function: GQA, causal and sliding-window masks and
 logit soft-capping, f32 arithmetic, the output in q's dtype. The design
@@ -10,14 +11,17 @@ with D a multiple of 16 runs on the tensor cores (P split into two bf16
 terms for the P.V products), everything else on the CUDA cores in f32.
 ``kernel_path`` states the same rule, for counting.
 
-The backward (``flash_attention_bwd_cuda``) is two more kernels on the
-CUDA cores in f32: dq per query tile, then dk and dv per key tile with
-the GQA sum in registers. The forward writes the row log-sum-exp it
-needs where asked (``with_lse``).
+The backward (``flash_attention_bwd_cuda``) is two more kernels a call:
+dq per query tile, then dk and dv per key tile with the GQA sum in
+registers. bf16 with D a multiple of 16 up to 128 runs them on the
+tensor cores (wgmma; P and dS split into two bf16 terms for the
+products they enter), the rest on the CUDA cores in f32: a library
+each, picked by ``bwd_kernel_path``. The forward writes the row
+log-sum-exp the backward needs where asked (``with_lse``).
 
 ``PATH_LAUNCHES`` counts, per path, the forward calls that launched a
-kernel, and ``BWD_LAUNCHES`` the backward calls (each launches its two
-kernels), and nothing else, so a run can show that its path went
+kernel, and ``BWD_PATH_LAUNCHES`` the backward calls (each launches its
+two kernels), and nothing else, so a run can show that its path went
 through them.
 """
 
@@ -31,10 +35,9 @@ import torch
 from . import build
 
 PATH_LAUNCHES = {"tensor_cores": 0, "cuda_cores": 0}
-BWD_LAUNCHES = 0
-BWD_PATH = "cuda_cores"  # the backward's one path
+BWD_PATH_LAUNCHES = {"tensor_cores": 0, "cuda_cores": 0}
 _FN = None
-_BWD_FN = None
+_BWD_FNS = {}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -49,11 +52,22 @@ def kernel_path(dtype: torch.dtype, D: int) -> str:
     return "cuda_cores"
 
 
+def bwd_kernel_path(dtype: torch.dtype, D: int) -> str:
+    """The backward kernels a call runs: ``"tensor_cores"``
+    (``csrc/flash_attention_bwd_tc.cu``) for bfloat16 with D a multiple
+    of 16 and at most 128, ``"cuda_cores"``
+    (``csrc/flash_attention_bwd.cu``) otherwise: float32 (as in the
+    forward), and D = 256, whose dk and dv of a 64-key tile would not fit
+    in the registers of a warpgroup."""
+    if dtype == torch.bfloat16 and D % 16 == 0 and D <= 128:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def reset_path_launches() -> None:
-    global BWD_LAUNCHES
-    for path in PATH_LAUNCHES:
-        PATH_LAUNCHES[path] = 0
-    BWD_LAUNCHES = 0
+    for counts in (PATH_LAUNCHES, BWD_PATH_LAUNCHES):
+        for path in counts:
+            counts[path] = 0
 
 
 def _fn():
@@ -67,15 +81,17 @@ def _fn():
     return _FN
 
 
-def _bwd_fn():
-    global _BWD_FN
-    if _BWD_FN is None:
-        f = build.load("flash_attention_bwd").flash_attention_bwd_launch
+def _bwd_fn(path: str):
+    f = _BWD_FNS.get(path)
+    if f is None:
+        name = "flash_attention_bwd" + ("_tc" if path == "tensor_cores"
+                                        else "")
+        f = getattr(build.load(name), name + "_launch")
         f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
         f.restype = ctypes.c_int
-        _BWD_FN = f
-    return _BWD_FN
+        _BWD_FNS[path] = f
+    return f
 
 
 def check_masks(Sq: int, Sk: int, causal: bool,
@@ -191,9 +207,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("flash_attention_bwd_cuda: inputs on different "
                          "devices")
     scale = scale if scale is not None else D ** -0.5
+    path = bwd_kernel_path(q.dtype, D)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    fn = _bwd_fn()
+    fn = _bwd_fn(path)
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
@@ -202,5 +219,5 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                  int(bool(causal)), int(window or 0), float(scale),
                  float(softcap or 0.0), build.stream_handle(dev))
     build.check(err, "flash_attention backward")
-    build.bump(globals(), "BWD_LAUNCHES")
+    build.bump(BWD_PATH_LAUNCHES, path)
     return dq, dk, dv

@@ -295,7 +295,8 @@ def launch_counts() -> dict:
             "replicate_scatter": shuffle_pack.REPL_LAUNCHES,
             "flash_attention": sum(
                 flash_attention_kernel.PATH_LAUNCHES.values()),
-            "flash_attention_bwd": flash_attention_kernel.BWD_LAUNCHES,
+            "flash_attention_bwd": sum(
+                flash_attention_kernel.BWD_PATH_LAUNCHES.values()),
             "rwkv6": rwkv6_kernel.LAUNCHES,
             "rwkv6_bwd": rwkv6_kernel.BWD_LAUNCHES}
 

@@ -7,9 +7,12 @@ The design note is in the CUDA source: one kernel for f32 and bf16,
 its products on the tensor cores (``PATH``) in TF32 with every f32
 operand split into two terms, the decays factored at 16-step sub-chunks.
 
-The backward (``rwkv6_bwd_cuda``) is one more kernel: a block per
-(b, h) runs the recurrence of the state's gradient backward, with the
-state formed again from its value at every chunk start.
+The backward (``rwkv6_bwd_cuda``) is three more kernels, parallel over
+chunks of at most 64 steps: each chunk's own state and gradient
+contributions from zero, a carry of the state at every chunk start and
+of its gradient at every chunk end, then each chunk's gradients from
+the two, the state and its gradient walked elementwise in f32 registers
+(dw as rowsum(G_t * S_{t-1}) itself, never divided by w).
 
 ``LAUNCHES`` counts the forward calls that launched the kernel and
 ``BWD_LAUNCHES`` the backward's (and nothing else), so a run can show
@@ -27,13 +30,13 @@ from . import build
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 PATH = "tensor_cores"  # the one path: every call of every shape takes it
-BWD_PATH = "cuda_cores"  # the backward's one path
+BWD_PATH = "cuda_cores"  # the backward's one path: f32 FMAs, chunk-parallel
 _FN = None
 _BWD_FN = None
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_KV = 128          # largest K and V: the chunk, its sums and the K x V
 MAX_CHUNK = 64        # state stay within a block's shared memory
-MAX_BWD_STATE = 4096  # K V of the backward: 16 state elements a thread
+MAX_BWD_STATE = 4096  # K V of the backward: two passes of a 64 x 64 tile
 
 
 def _fn():
@@ -51,7 +54,7 @@ def _bwd_fn():
     global _BWD_FN
     if _BWD_FN is None:
         f = build.load("rwkv6_bwd").rwkv6_bwd_launch
-        f.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 \
+        f.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _BWD_FN = f
@@ -93,9 +96,10 @@ def rwkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dr, dk, dv, dw, du) of ``rwkv6_cuda`` for the output's cotangent
     ``do`` (B, H, T, V) of r's dtype; the arguments otherwise as
     ``rwkv6_cuda``'s. dr, dk, dv, dw in r's dtype; du (H, K) f32, the
-    kernel's per-(b, h) sums added over b here. ``chunk``: the steps
-    between the states the kernel keeps (a scratch of B H ceil(T /
-    chunk) K V floats, and one of its sub-chunks' start states)."""
+    kernels' per-(b, h, chunk) sums added here. The kernels run chunks
+    of C = min(chunk, T, 64) steps in parallel, with two f32 scratch
+    arrays of B H ceil(T / C) K V floats (the state at every chunk
+    start, its gradient at every chunk end)."""
     _check("rwkv6_bwd_cuda", r, k, v, w, u)
     B, H, T, K = r.shape
     V = v.shape[3]
@@ -109,25 +113,29 @@ def rwkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk = min(int(chunk), T)
     if chunk < 1:
         raise ValueError(f"rwkv6_bwd_cuda: chunk {chunk}")
+    C = min(chunk, MAX_CHUNK)
+    NC = -(-T // C)
+    if NC > 65535:
+        raise ValueError(f"rwkv6_bwd_cuda: T={T} makes {NC} chunks of {C}, "
+                         "beyond the grid's 65535")
     dev = r.device
     dr, dk, dw = (torch.empty_like(r) for _ in range(3))
     dv = torch.empty_like(v)
-    du_part = torch.empty((B, H, K), dtype=torch.float32, device=dev)
-    ckpt = torch.empty((B * H * (-(-T // chunk)) * K * V,),
-                       dtype=torch.float32, device=dev)
-    steps = build.load("rwkv6_bwd").rwkv6_bwd_steps(K, V, chunk)
-    subst = torch.empty((B * H * (-(-chunk // steps)) * K * V,),
-                        dtype=torch.float32, device=dev)
+    du_part = torch.empty((B, H, NC, K), dtype=torch.float32, device=dev)
+    s_st, g_st = (torch.empty((B * H * NC * K * V,), dtype=torch.float32,
+                              device=dev) for _ in range(2))
+    dn = torch.empty((B * H * NC * K,), dtype=torch.float32, device=dev)
     fn = _bwd_fn()
     with torch.cuda.device(dev):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), do.data_ptr(), dr.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
-                 ckpt.data_ptr(), subst.data_ptr(), B, H, T, K, V, chunk,
-                 int(r.dtype == torch.bfloat16), build.stream_handle(dev))
+                 s_st.data_ptr(), g_st.data_ptr(), dn.data_ptr(), B, H, T, K,
+                 V, C, int(r.dtype == torch.bfloat16),
+                 build.stream_handle(dev))
     build.check(err, "rwkv6 backward")
     build.bump(globals(), "BWD_LAUNCHES")
-    return dr, dk, dv, dw, du_part.sum(0)
+    return dr, dk, dv, dw, du_part.sum((0, 2))
 
 
 def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1126,6 +1126,8 @@ BWD_ATTN_SHAPES = [
     (2, 8, 8, 448, 1500, 64, dict(causal=False)),   # Whisper's cross
     (1, 8, 8, 1500, 1500, 64, dict(causal=False)),  # Whisper's encoder
     (1, 2, 2, 100, 100, 24, dict(causal=False, window=30)),
+    (1, 14, 2, 200, 200, 64, dict(causal=True, softcap=30.0)),  # group 7
+    (1, 2, 1, 64, 64, 64, dict(causal=True)),       # one 64-row tile
 ]
 
 
@@ -1147,12 +1149,14 @@ def _attention_bwd_args(shape, dtype, dev, seed):
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("case", range(len(BWD_ATTN_SHAPES)))
 def test_flash_attention_backward_within_its_bound(cuda, case, dtype):
-    """The backward kernels at GQA groups 1-4, D from 16 to 256, causal,
-    window and softcap, and Whisper's non-causal calls (448 and 1500
-    rows over 1500 keys): dq, dk, dv within ``attention_bwd_bound`` of
-    the plain version (+1 bf16 ulp in bf16), two launches bit-identical,
-    each call counted once; the forward's lse within its bound of the
-    plain version's."""
+    """The backward kernels at GQA groups 1-7, D from 16 to 256, causal,
+    window and softcap, one 64-row tile, and Whisper's non-causal calls
+    (448 and 1500 rows over 1500 keys): dq, dk, dv within
+    ``attention_bwd_bound`` of the plain version (+1 bf16 ulp in bf16),
+    two launches bit-identical, each call counted once on the path that
+    ``bwd_kernel_path`` names (bf16 with D a multiple of 16 up to 128:
+    the tensor cores); the forward's lse within its bound of the plain
+    version's."""
     from repro_torch.kernels import flash_attention as TFA
     args, kw = _attention_bwd_args(BWD_ATTN_SHAPES[case], dtype, cuda, case)
     q, k, v, o, lse, do = args
@@ -1165,9 +1169,13 @@ def test_flash_attention_backward_within_its_bound(cuda, case, dtype):
     lse_tol = 2 * chip_smoke.U_F32 * (D ** 0.5 * qn * kn + Sk + 8) \
         + 2 * chip_smoke.U_F32 * want.abs()
     chip_smoke.within(lse, want, lse_tol)
-    before = TFA.BWD_LAUNCHES
+    path = TFA.bwd_kernel_path(dtype, D)
+    assert (path == "tensor_cores") == (
+        dtype == torch.bfloat16 and D in (16, 64, 128))
+    before = dict(TFA.BWD_PATH_LAUNCHES)
     chip_smoke.check_lm_bwd("flash_attention_bwd", args, kw)
-    assert TFA.BWD_LAUNCHES == before + 2
+    before[path] += 2
+    assert TFA.BWD_PATH_LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -1196,13 +1204,17 @@ def test_flash_attention_backward_controls_lie_beyond_the_bound(cuda):
         *args2, **kw), chip_smoke.attention_bwd_bound(*args2, **kw)) > 1
 
 
-def _rwkv_bwd_args(B, H, T, K, V, dtype, dev, seed, tiny=False):
+def _rwkv_bwd_args(B, H, T, K, V, dtype, dev, seed, tiny=False,
+                   small_decays=False):
     rng = np.random.RandomState(seed)
     r, k = (torch.as_tensor(rng.randn(B, H, T, K) * 0.5, dtype=dtype,
                             device=dev) for _ in range(2))
     w = 0.2 + 0.79 * rng.rand(B, H, T, K)
     if tiny:
         w[:, :, ::7, ::3] = 1e-14
+    if small_decays:           # channels of decays at 1e-4 and at 1e-9
+        w[..., 1::4] = 1e-4
+        w[..., 2::4] = 1e-9
     w = torch.as_tensor(w, dtype=dtype, device=dev)
     v = torch.as_tensor(rng.randn(B, H, T, V), dtype=dtype, device=dev)
     u = torch.as_tensor(rng.randn(H, K) * 0.3, dtype=torch.float32,
@@ -1219,13 +1231,17 @@ def _rwkv_bwd_args(B, H, T, K, V, dtype, dev, seed, tiny=False):
                                    (1, 2, 77, 64, 32, 32),
                                    (1, 1, 50, 32, 128, 64),
                                    (1, 2, 21, 12, 20, 16),
-                                   (2, 2, 300, 64, 64, 64)],
+                                   (2, 2, 300, 64, 64, 64),
+                                   (1, 2, 90, 96, 40, 32)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_rwkv6_backward_within_its_bound(cuda, shape, dtype):
-    """The backward kernel at T around its chunks, K != V, V = 128 (a
-    state of 4096, the most it takes): dr, dk, dv, dw and du within
-    ``rwkv6_bwd_bound`` of the plain version, two launches bit-identical,
-    counted once each; a larger state is refused."""
+    """The backward kernels at T around their chunks, K != V, V = 128 (a
+    state of 4096, the most they take; two column passes of the 64 x 64
+    tile), K = 96 (two row passes, dv summed over them), rows not whole
+    16-byte pieces (K = 12, V = 20: loaded element by element): dr, dk,
+    dv, dw and du within ``rwkv6_bwd_bound`` of the plain version, two
+    launches bit-identical, counted once each; a larger state is
+    refused."""
     from repro_torch.kernels import rwkv6_scan as TRW
     B, H, T, K, V, chunk = shape
     args = _rwkv_bwd_args(B, H, T, K, V, dtype, cuda, T)
@@ -1235,6 +1251,19 @@ def test_rwkv6_backward_within_its_bound(cuda, shape, dtype):
     big = _rwkv_bwd_args(1, 1, 8, 128, 64, dtype, cuda, 0)
     with pytest.raises(ValueError, match="K V <= 4096"):
         TRW.rwkv6_bwd_cuda(*big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_rwkv6_backward_small_decays_within_its_bound(cuda, dtype):
+    """Channels whose every decay is 1e-4 or 1e-9 beside decays in [0.2,
+    0.99], over chunks of 64 and a ragged tail: every gradient within
+    ``rwkv6_bwd_bound`` of the plain version, two launches bit-identical
+    (dw taken as rowsum(G S) itself, never from cumulative sums)."""
+    args = _rwkv_bwd_args(2, 2, 150, 64, 64, dtype, cuda, 11,
+                          small_decays=True)
+    chip_smoke.check_lm_bwd("rwkv6_bwd", args, dict(chunk=64))
 
 
 @pytest.mark.cuda
@@ -1302,7 +1331,10 @@ def test_smoke_train_step_on_card_equals_port_on_cpu(cuda, arch):
     for (path, a), b in zip(TT.flatten(s_card["m"]), TT.leaves(s_cpu["m"])):
         err = float((a.cpu() - b).abs().max())
         assert err <= 1e-4 * float(b.abs().max()) or err == 0, path
-    assert TFA.BWD_PATH == "cuda_cores" and TRW.BWD_PATH == "cuda_cores"
+    if arch == "gemma2_27b":   # float32: the CUDA cores
+        assert TFA.BWD_PATH_LAUNCHES == {"tensor_cores": 0,
+                                         "cuda_cores": cfg.n_layers}
+    assert TRW.BWD_PATH == "cuda_cores"
 
 
 @pytest.mark.cuda
