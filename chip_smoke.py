@@ -218,6 +218,29 @@ wrong or if there is no CUDA device. Phases:
                bound, and its controls (the state not carried back
                across chunks: beyond the bound; decays set to 1e-14: dw
                0 there); a profiled warm step;
+  U dry-run    repro_torch.launch.dryrun's run_cell for RWKV-6 7B on
+               each of its four shapes on the 16x16 pod mesh, on the
+               meta device (no allocation): each record's per-device
+               parameter, optimizer and input bytes, counted_flops
+               against model_flops, the bytes proxy; the reckoning
+               tied to the card: the dry-run's parameter bytes of K's
+               config equal to what init_params allocates on the card,
+               and the meta prefill's counted_flops at K's shape equal
+               to FlopCounterMode's count of K's prefill on the card
+               with the plain versions swapped in, over 1 of its 8
+               layers;
+  T compress   int8 error-feedback gradient compression
+               (train.compression.tree_compressed_mean) over 2 sites,
+               the "pod" axis of the 2x16x16 mesh as a virtual mesh on
+               the card: S's trained model gives each site the gradient
+               of one half of a batch (0.941B elements); 3 rounds with
+               the residuals carried: the bytes a site sends (int8 codes
+               and scales against f32), the worst leaf's error against
+               the bound its codes give, x + residual_in == sent +
+               residual_out exactly, a second run bit-identical, the
+               codes of a 2^20-element slice (and a two-site mean over
+               it) bit-equal to the CPU's; the control drops the error
+               feedback;
   L gemma2-27b the same as K for Gemma-2 27B, 8 of its 46 layers
                (L_LAYERS), at 1 x 8192 tokens, so that the 4096 window
                masks: flash_attention 8 launches, all on its tensor-core
@@ -5471,7 +5494,8 @@ def bwd_fault(kernel: str):
 
 
 def phase_train(tag: str, arch: str, B: int, S: int, kernel: str,
-                seed: int, dev, n_layers: int = 2) -> list:
+                seed: int, dev, n_layers: int = 2,
+                hold: dict = None) -> list:
     """Phases R and S: ``arch`` at full width in bf16 with seeded random
     weights, cut to ``n_layers``, trained on ``TokenPipeline``'s batches
     from the card by ``make_train_step`` (the optimizer
@@ -5487,7 +5511,9 @@ def phase_train(tag: str, arch: str, B: int, S: int, kernel: str,
     gradient norm; microbatch 0 taken twice beyond the bounds); each
     backward kernel at its captured arguments
     (``measure_lm_bwd``) with its controls; one warm step profiled.
-    Returns the backward kernels' records."""
+    Returns the backward kernels' records; ``hold``, where given, keeps
+    the config, the trained weights and a batch (phase T), the
+    optimizer's state freed."""
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenPipeline
@@ -5654,9 +5680,249 @@ def phase_train(tag: str, arch: str, B: int, S: int, kernel: str,
     del calls
     batch = pipe.batch_at(6)
     profile_run(lambda: step(params, state, batch), f"{tag} train step")
+    if hold is not None:
+        hold.update(cfg=cfg, params=params, batch=pipe.batch_at(7))
     del params, state, pipe, pipe2, batch, fixed, gb, mb_batch
     torch.cuda.empty_cache()
     return recs
+
+
+COMPRESS_SITES = 2             # phase T: the "pod" axis of the 2x16x16 mesh
+COMPRESS_ROUNDS = 3            # rounds of error feedback in phase T
+COMPRESS_SLICE = 1 << 20       # elements whose codes the CPU recomputes
+U_FLOP_LAYERS = 1              # phase U's flop check on the card: 1 of
+#                                K's 8 layers
+F32_SLACK = 2.0 ** -20         # phase T's bound: the codes' half steps plus
+#                                this share of the chunk's max |x| for the
+#                                f32 products, sums and division (a few
+#                                roundings of 2^-24 each)
+
+
+def compress_bound(xs: list, mean: torch.Tensor) -> float:
+    """The worst |mean - exact f64 mean of xs| over one leaf against the
+    bound its codes give, per chunk: each site's scale / 2 over the
+    sites (the scales formed as ``compressed_psum_mean`` forms them),
+    plus the re-quantization's scale / 2, plus F32_SLACK of the chunk's
+    max |x|. The re-quantization's scale s2 = max |local| / 127 + 1e-12
+    with max |local| <= max |mean| + s2 / 2, so s2 <= (max |mean| / 127
+    + 1e-12) x 254 / 253."""
+    n = len(xs)
+    pad = (-xs[0].numel()) % n
+    X = torch.stack([torch.nn.functional.pad(x.reshape(-1), (0, pad))
+                     for x in xs]).reshape(n, n, -1)      # site, chunk, .
+    M = torch.nn.functional.pad(mean.reshape(-1), (0, pad)).reshape(n, -1)
+    xmax = X.abs().amax(-1)                               # (site, chunk)
+    s2 = (M.abs().amax(-1).double() / 127.0 + 1e-12) * 254 / 253
+    bound = (xmax / 127.0 + 1e-12).double().sum(0) / 2 / n + s2 / 2 \
+        + F32_SLACK * xmax.amax(0).double()
+    err = (M.double() - X.double().mean(0)).abs().amax(-1)
+    return float((err / bound).max())
+
+
+def phase_compress(tag: str, hold: dict, dev) -> None:
+    """Phase T: int8 error-feedback gradient compression on the card.
+    S's model (``hold``: its config, trained weights and a batch, the
+    optimizer's state freed) gives each of COMPRESS_SITES sites (the
+    "pod" axis of the multi-pod mesh, a virtual mesh on this card) the
+    gradient of one half of the batch; ``tree_compressed_mean`` runs
+    COMPRESS_ROUNDS rounds with the residuals carried. Prints the bytes
+    that would cross the wire (int8 codes and scales against f32) and
+    the worst leaf's error against the bound its codes give; checks the
+    codes of a COMPRESS_SLICE-element slice (and a two-site mean over
+    it) bit-equal to the CPU's, x + residual_in == sent + residual_out
+    exactly on every leaf and site, and a second run bit-identical; the
+    control drops the error feedback."""
+    from repro_torch import tree as TR
+    from repro_torch.exec.dist import device_mesh_1d, run_on_sites
+    from repro_torch.train.compression import (compressed_psum_mean,
+                                               dequantize_int8,
+                                               quantize_int8,
+                                               tree_compressed_mean)
+    from repro_torch.train.train_loop import make_loss, value_and_grad
+    cfg, params, batch = hold["cfg"], hold["params"], hold["batch"]
+    n = COMPRESS_SITES
+    B = batch["tokens"].shape[0]
+    t0 = time.perf_counter()
+    grads = [TR.tree_map(lambda g: g.float(), value_and_grad(
+        make_loss(cfg), params, {k: v[i * B // n:(i + 1) * B // n]
+                                 for k, v in batch.items()})[1])
+        for i in range(n)]
+    grad_s = sync_s(t0)
+    flat = [TR.leaves(g) for g in grads]
+    paths = [p for p, _ in TR.flatten(grads[0])]
+    n_el = sum(g.numel() for g in flat[0])
+    mesh = device_mesh_1d(n, "pod", device=dev)
+
+    def rounds(feedback: bool, check: bool) -> tuple:
+        """The rounds' per-leaf bit digests of the means, the last
+        round's means and residuals, the worst bound share and its
+        leaf, the rounds' ms."""
+        res = [TR.tree_map(torch.zeros_like, g) for g in grads]
+        digests, worst, ms = [], (0.0, ""), []
+        for _ in range(COMPRESS_ROUNDS):
+            r_in = res if feedback else \
+                [TR.tree_map(torch.zeros_like, g) for g in grads]
+            t1 = time.perf_counter()
+            out = run_on_sites(mesh, lambda ctx: tree_compressed_mean(
+                grads[ctx.site], "pod", n, r_in[ctx.site], ctx))
+            ms.append(sync_s(t1) * 1e3)
+            means = [TR.leaves(o[0]) for o in out]
+            res = [o[1] for o in out]
+            digests.append([int(m.view(torch.int32).long().sum())
+                            for m in means[0]])
+            if check:
+                for j, p in enumerate(paths):
+                    xs = [flat[i][j] + TR.leaves(r_in[i])[j]
+                          for i in range(n)]
+                    assert all(torch.equal(means[i][j], means[0][j])
+                               for i in range(n)), p
+                    share = compress_bound(xs, means[0][j])
+                    worst = max(worst, (share, p))
+                    for i in range(n):
+                        sent = dequantize_int8(*quantize_int8(
+                            xs[i].reshape(-1))).reshape(xs[i].shape)
+                        assert torch.equal(
+                            (sent + TR.leaves(res[i])[j]).view(torch.int32),
+                            xs[i].view(torch.int32)), (p, i)
+            del out, r_in
+        return digests, means, res, worst, ms
+
+    digests, means, res, worst, ms = rounds(True, True)
+    again = rounds(True, False)
+    identical = again[0] == digests and all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for i in range(n) for a, b in zip(
+            means[i] + TR.leaves(res[i]),
+            again[1][i] + TR.leaves(again[2][i])))
+    del again, means, res
+    torch.cuda.empty_cache()
+    ctrl = rounds(False, True)
+    c_worst = ctrl[3]
+    del ctrl
+    # the codes of a slice of the largest leaf against the CPU's
+    big = max(range(len(paths)), key=lambda j: flat[0][j].numel())
+    sl = [flat[i][big].reshape(-1)[:COMPRESS_SLICE] for i in range(n)]
+    q, s = quantize_int8(sl[0])
+    qc, sc = quantize_int8(sl[0].cpu())
+    codes_equal = torch.equal(q.cpu(), qc) and torch.equal(
+        s.cpu().view(torch.int32), sc.view(torch.int32))
+    card = run_on_sites(mesh, lambda ctx: compressed_psum_mean(
+        sl[ctx.site], "pod", n, torch.zeros_like(sl[ctx.site]), ctx))
+    host = run_on_sites(device_mesh_1d(n, "pod", device="cpu"),
+                        lambda ctx: compressed_psum_mean(
+                            sl[ctx.site].cpu(), "pod", n,
+                            torch.zeros_like(sl[ctx.site].cpu()), ctx))
+    mean_equal = all(torch.equal(a.cpu().view(torch.int32),
+                                 b.view(torch.int32))
+                     for c, h in zip(card, host) for a, b in zip(c, h))
+    # the bytes a site sends a round: an all_to_all of n - 1 chunks and
+    # their scales, then an all_gather of its chunk and scale to n - 1
+    chunks = [-(-g.numel() // n) for g in flat[0]]
+    int8_b = sum(2 * (n - 1) * (c + 4) for c in chunks)
+    f32_b = sum(2 * (n - 1) * c * 4 for c in chunks)
+    log(f"[{tag}] {len(paths)} gradient leaves, {n_el / 1e9:.3f}B elements "
+        f"a site ({cfg.name} at {cfg.n_layers} layers, full width), "
+        f"{n} sites (the \"pod\" axis of the 2x16x16 mesh, on this card), "
+        f"each the gradient of {B // n} of S's {B} rows (both in "
+        f"{grad_s:.2f} s); {COMPRESS_ROUNDS} rounds of tree_compressed_"
+        f"mean with error feedback: {', '.join(f'{t:.1f}' for t in ms)} "
+        f"ms; a site sends {int8_b / 1e9:.4f} GB a round in int8 codes and "
+        f"scales against {f32_b / 1e9:.4f} GB in f32 "
+        f"({f32_b / int8_b:.3f}x)")
+    log(f"[{tag}] worst leaf {worst[1]}: |mean - exact f64 mean| at "
+        f"{worst[0]:.3f} of the bound of its codes (each site's scale / 2 "
+        f"over {n}, the re-quantization's scale / 2, {F32_SLACK:.3g} of "
+        f"the chunk's max |x|) over {COMPRESS_ROUNDS} rounds; x + "
+        f"residual_in == sent + residual_out exactly on every leaf and "
+        f"site; a second run {'bit-identical' if identical else 'DIFFERENT'}"
+        f"; {COMPRESS_SLICE} elements of {paths[big]}: codes and scale "
+        f"{'bit-equal' if codes_equal else 'DIFFERENT'} to the CPU's, the "
+        f"{n}-site mean and residuals {'bit-equal' if mean_equal else 'DIFFERENT'}"
+        f" to the CPU's")
+    log(f"[{tag}] control, the error feedback dropped (residuals zero in "
+        f"every round): worst leaf {c_worst[1]} at {c_worst[0]:.3f} of its "
+        f"bound, {'beyond' if c_worst[0] > 1 else 'within'} it: the bound "
+        f"follows from the codes of whatever a round sends, so no control "
+        f"of this kind can cross it")
+    assert worst[0] <= 1.0, worst
+    assert identical and codes_equal and mean_equal
+    del grads, flat, card, host, sl
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun(tag: str, seed: int, dev) -> None:
+    """Phase U: the dry-run's reckoning tied to the card. ``run_cell``
+    for RWKV-6 7B on each of its four shapes on the 16x16 pod mesh, on
+    meta (each record's tallies and counts printed); the dry-run's
+    parameter bytes of K's 8-of-32-layer config against what
+    ``init_params`` allocates on the card; and the meta forward's
+    ``counted_flops`` at K's shape (4 x 4096) against FlopCounterMode's
+    count of K's prefill on the card with the plain versions swapped
+    in (the same ops, so exactly equal), over U_FLOP_LAYERS of K's
+    layers: under the counter's dispatch the plain recurrence takes
+    2.5-5 s a layer there."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import tree as TR
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import transformer as T
+    arch = "rwkv6_7b"
+    for shape in SHAPES:
+        r = D.run_cell(arch, shape, False, verbose=False)
+        log(f"[{tag}] {arch} x {shape} on the {r['mesh']} mesh ({r['chips']}"
+            f" chips), meta: params {r['params_total'] / 1e9:.3f}B "
+            f"({r['param_bytes_total'] / 2 ** 30:.2f} GiB), per device "
+            f"params {r['param_bytes_per_device'] / 2 ** 30:.3f} GiB, "
+            f"optimizer {r['opt_bytes_per_device'] / 2 ** 30:.3f} GiB "
+            f"({r.get('optimizer', 'none')}), inputs "
+            f"{r['input_bytes_per_device'] / 2 ** 30:.3f} GiB; counted_flops "
+            f"{r['counted_flops']:.4g} against model_flops "
+            f"{r['model_flops']:.4g} ({r['counted_flops'] / r['model_flops']:.3f}"
+            f"x), hbm_bytes_proxy {r['hbm_bytes_proxy']:.4g} B; counted in "
+            f"{r['count_s']:.2f} s; collectives {r['collectives']}")
+    cfg = get_config(arch).reduced(n_layers=K_LAYERS)
+    ab = T.abstract_params(cfg)
+    want = sum(x.numel() * x.element_size() for x in TR.leaves(ab))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = T.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    got = torch.cuda.memory_allocated() - before
+    log(f"[{tag}] K's config ({K_LAYERS} of 32 layers): the dry-run's "
+        f"parameter bytes {want} against init_params' allocation on the "
+        f"card {got}: {'equal' if got == want else 'DIFFERENT'}")
+    assert got == want, (got, want)
+    B, S = 4, 4096
+    cut = cfg.reduced(n_layers=U_FLOP_LAYERS)
+    params = {k: ({pos: {n: t[:cut.n_blocks] for n, t in blk.items()}
+                   for pos, blk in v.items()} if k == "blocks" else v)
+              for k, v in params.items()}
+    t0 = time.perf_counter()
+    meta = D.count_step(lambda: T.prefill(cut, T.abstract_params(cut),
+                                          torch.empty((B, S),
+                                                      dtype=torch.int64,
+                                                      device="meta"))
+                        )["counted_flops"]
+    meta_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cut.vocab, (B, S), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode(), plain_lm_kernels(), \
+            FlopCounterMode(display=False) as fc:
+        logits = T.prefill(cut, params, tokens)
+    card_s = sync_s(t0)
+    card = fc.get_total_flops()
+    log(f"[{tag}] K's prefill ({B} x {S}) over {U_FLOP_LAYERS} of its "
+        f"{K_LAYERS} layers: counted_flops on meta {meta:.6g} "
+        f"({meta_s:.2f} s), FlopCounterMode on the card with the plain "
+        f"versions swapped in {card:.6g} ({card_s:.2f} s): "
+        f"{'equal' if meta == card else 'DIFFERENT'}; logits finite "
+        f"{bool(torch.isfinite(logits).all())}")
+    assert meta == card > 0, (meta, card)
+    assert torch.isfinite(logits).all()
+    del params, logits
+    torch.cuda.empty_cache()
 
 
 def phases_nq(seed: int, dev, lap) -> list:
@@ -5741,9 +6007,15 @@ def main() -> int:
     recs_k = phase_lm("K rwkv6-7b", "rwkv6_7b", 4, 4096, "rwkv6",
                       K_LAYERS, args.seed, dev, n_layers=K_LAYERS)
     lap("K")
+    phase_dryrun("U dry-run", args.seed, dev)
+    lap("U")
+    held = {}
     recs_s = phase_train("S rwkv6-7b train", "rwkv6_7b", 4, 4096, "rwkv6",
-                         args.seed, dev)
+                         args.seed, dev, hold=held)
     lap("S")
+    phase_compress("T compression", held, dev)
+    del held
+    lap("T")
     recs_l = phase_lm("L gemma2-27b", "gemma2_27b", 1, 8192,
                       "flash_attention", L_LAYERS, args.seed, dev,
                       n_layers=L_LAYERS)

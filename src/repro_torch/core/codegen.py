@@ -362,11 +362,19 @@ class ProgramExecutable:
 
 def jit_program(cp: CompiledProgram,
                 settings: Optional[ExecSettings] = None,
-                jit: bool = True) -> ProgramExecutable:
+                jit: bool = True, donate_env: bool = False
+                ) -> ProgramExecutable:
     """The program DAG as ONE topologically scheduled callable. With
     ``jit=True`` calls are keyed on their input signature, and a
     signature seen before counts no trace (the plan-cache contract);
-    ``jit=False`` counts every call, as an un-jitted function would."""
+    ``jit=False`` counts every call, as an un-jitted function would.
+
+    ``donate_env=True`` donates the input environment: after each call
+    the executable empties the ``env`` dict it was given, dropping its
+    references to the env's tensors, so that on the card their memory
+    can be reused once the caller holds no other reference. One-shot
+    pipelines only: a donated env is unusable afterwards, as the
+    reference's donated buffers are."""
     _compile_fault("jit_program")
     base = settings or ExecSettings()
     outputs = tuple(cp.outputs) or tuple(n for n, _ in cp.plans)
@@ -393,8 +401,11 @@ def jit_program(cp: CompiledProgram,
                 out = fn(env, params)
             if sig is not None:
                 seen.add(sig)
-            return out
-        return fn(env, params)
+        else:
+            out = fn(env, params)
+        if donate_env:
+            env.clear()
+        return out
 
     defaults = collect_params(cp.graph) if cp.graph is not None else {}
     return ProgramExecutable(cp, outputs, defaults, cfn, fn)

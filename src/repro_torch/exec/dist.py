@@ -131,6 +131,11 @@ class VirtualMesh:
     def size(self) -> int:
         return self.n
 
+    @property
+    def axis_names(self) -> Tuple[str]:
+        """The mesh's axis names, as a ``jax.sharding.Mesh`` has them."""
+        return (self.axis,)
+
     def __repr__(self) -> str:
         return (f"VirtualMesh({self.n} sites, axis={self.axis!r}, "
                 f"device={self.device})")
@@ -227,7 +232,9 @@ class _Rendezvous:
 class DistContext:
     """Collective operators + metering for one site of a virtual-mesh
     run (the reference's context of one shard_map region). ``site`` is
-    this site's index on the axis; ``device`` where its metrics live."""
+    this site's index on the axis; ``device`` where its metrics live (the
+    GPU when None, as ``resolve_device`` gives it). A one-site context
+    makes its own rendezvous."""
 
     def __init__(self, axis: str, n_partitions: int,
                  cap_factor: float = 2.0, sample: int = 256,
@@ -246,11 +253,10 @@ class DistContext:
         self.size_plan = size_plan
         self.use_kernel = use_kernel
         self.site = site
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         if rendezvous is None:
             assert n_partitions == 1, "a multi-site context needs its mesh"
-            rendezvous = _Rendezvous(1, 600.0)
+            rendezvous = _Rendezvous(1)
         self._rv = rendezvous
         self.metrics: Dict[str, torch.Tensor] = {}
         self.max_metrics: Dict[str, torch.Tensor] = {}
@@ -940,24 +946,23 @@ def _signature(env: Dict[str, FlatBag], params: Dict[str, torch.Tensor]
     return bags, ps
 
 
-def _run_sites(mesh: VirtualMesh, make_ctx, fn, env: Dict[str, FlatBag],
-               params: Optional[dict], record: bool):
-    """Run ``fn(env_local, ctx[, params])`` once per site, each on its
-    own thread with its own ``DistContext``; returns (the outputs
-    concatenated in site order, site 0's combined metrics). Only site 0
-    records host telemetry, and only when ``record`` is set. A site that
-    raises aborts the others; the run then raises that site's own
-    exception."""
+def run_on_sites(mesh: VirtualMesh, fn: Callable[[DistContext], object],
+                 make_ctx: Optional[Callable] = None,
+                 record: bool = False) -> list:
+    """Run ``fn(ctx)`` once per site of ``mesh``, each on its own thread
+    with its own ``DistContext`` (``make_ctx(site, rendezvous)``; by
+    default a context of the mesh's axis on its device), and return the
+    sites' results in site order. Only site 0 records host telemetry,
+    and only when ``record`` is set. A site that raises aborts the
+    others; the run then raises that site's own exception."""
     n = mesh.n
     dev = mesh.device
-    for k, b in env.items():
-        if b.device != dev:
-            raise ValueError(f"bag {k} lies on {b.device}; the mesh is on "
-                             f"{dev}")
+    if make_ctx is None:
+        def make_ctx(site: int, rv: _Rendezvous) -> DistContext:
+            return DistContext(mesh.axis, n, site=site, device=dev,
+                               rendezvous=rv)
     rv = _Rendezvous(n)
-    shards = [{k: _shard(b, n, i) for k, b in env.items()}
-              for i in range(n)]
-    results: List[Optional[tuple]] = [None] * n
+    results: list = [None] * n
     errors: List[Optional[BaseException]] = [None] * n
 
     def work(i: int) -> None:
@@ -965,12 +970,8 @@ def _run_sites(mesh: VirtualMesh, make_ctx, fn, env: Dict[str, FlatBag],
             else contextlib.nullcontext()
         try:
             with host_recording_as(record and i == 0), cuda:
-                ctx = make_ctx(i, rv)
-                out = fn(shards[i], ctx) if params is None \
-                    else fn(shards[i], ctx, params)
-                metrics = ctx.finalize_metrics()
+                results[i] = fn(make_ctx(i, rv))
                 rv.finish(i)
-                results[i] = (out, metrics)
         except BaseException as e:       # re-raised below, after the join
             errors[i] = e
             rv.abort(e)
@@ -990,6 +991,29 @@ def _run_sites(mesh: VirtualMesh, make_ctx, fn, env: Dict[str, FlatBag],
     if failed:
         own = [e for e in failed if not isinstance(e, MeshAborted)]
         raise (own or failed)[0]
+    return results
+
+
+def _run_sites(mesh: VirtualMesh, make_ctx, fn, env: Dict[str, FlatBag],
+               params: Optional[dict], record: bool):
+    """Run ``fn(env_local, ctx[, params])`` once per site
+    (``run_on_sites``); returns (the outputs concatenated in site order,
+    site 0's combined metrics)."""
+    n = mesh.n
+    dev = mesh.device
+    for k, b in env.items():
+        if b.device != dev:
+            raise ValueError(f"bag {k} lies on {b.device}; the mesh is on "
+                             f"{dev}")
+    shards = [{k: _shard(b, n, i) for k, b in env.items()}
+              for i in range(n)]
+
+    def site(ctx: DistContext) -> tuple:
+        local = shards[ctx.site]
+        out = fn(local, ctx) if params is None else fn(local, ctx, params)
+        return out, ctx.finalize_metrics()
+
+    results = run_on_sites(mesh, site, make_ctx, record)
     out = _concat_sites([r[0] for r in results])
     metrics = results[0][1]
     if metrics:

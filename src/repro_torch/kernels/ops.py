@@ -1,7 +1,11 @@
 """Public wrappers for the ported kernels, dispatched by device.
 
 A CUDA tensor launches the hand-written Hopper kernel; a CPU tensor
-runs the plain PyTorch version in ``ref.py``; any other device raises.
+runs the plain PyTorch version in ``ref.py``, and so does a tensor on
+the ``meta`` device (shapes only, for the dry-run: a loop of identical
+steps there, a recurrence's or the plain attention's over batch rows
+and heads, runs its first step under ``meta_trips``); any other device
+raises.
 There is no fallback from a failed launch and no switch to the plain
 version on the GPU: ``chip_smoke.py`` calls the ``ref`` functions
 directly when it compares.
@@ -21,6 +25,7 @@ kernel wrapper keeps, ``reset_launch_counts()`` zeroes them.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -30,8 +35,17 @@ from . import (decode, flash_attention as flash_attention_kernel,
                segment_reduce as segment_reduce_kernel, shuffle_pack)
 
 
+def detect_backend() -> str:
+    """The backend the kernels dispatch to, read from the device: "cuda"
+    where PyTorch sees a GPU, else "cpu". It changes no routing (each
+    call dispatches by its tensors' device), where the reference's sets
+    its Pallas interpret mode."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
 def _route(t: torch.Tensor, what: str, *inputs) -> bool:
-    """True for the kernel (CUDA), False for the plain version (CPU).
+    """True for the kernel (CUDA), False for the plain version (CPU and
+    meta).
     Raises for a CUDA call where grad mode is on and one of ``inputs``
     (the kernel's tensors) requires grad: the kernel has no backward."""
     if t.device.type == "cuda":
@@ -42,7 +56,7 @@ def _route(t: torch.Tensor, what: str, *inputs) -> bool:
                 "requires grad; call it under torch.no_grad() or on "
                 "detached tensors")
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{what}: no kernel or plain version for {t.device}")
 
@@ -182,6 +196,59 @@ def dict_gather(values: torch.Tensor, codes: torch.Tensor,
                                    out)
 
 
+# ---------------------------------------------------------------------------
+# the meta device: loops of identical steps counted by their trip count
+# ---------------------------------------------------------------------------
+
+TRIP_COUNTERS: list = []
+"""The counters of a dry-run (``launch.dryrun.Tally``) that are on: each
+has ``mark()``, its totals so far, and ``repeat(mark, times)``, which
+counts what it saw since ``mark`` ``times`` more times."""
+
+
+@contextlib.contextmanager
+def meta_trips(n: int):
+    """Every op run inside counts ``n`` times in each of ``TRIP_COUNTERS``.
+    A recurrence of ``n`` steps of one shape runs only its first step on
+    the meta device, under this; the reference's dry-run scales a rolled
+    loop's body by its trip count the same way
+    (``launch/hlo_analysis.py``)."""
+    marks = [(c, c.mark()) for c in TRIP_COUNTERS]
+    yield
+    for c, m in marks:
+        c.repeat(m, n - 1)
+
+
+def _meta_recurrence(fn, seqs: tuple, *rest):
+    """``fn(*seqs, *rest)`` on the meta device, where the tensors of
+    ``seqs`` run over T steps along dim 2: ``fn`` runs on their first
+    step under ``meta_trips(T)``, and every output with a step dim gets
+    T steps back."""
+    T = seqs[0].shape[2]
+    with meta_trips(T):
+        out = fn(*(x[:, :, :1] for x in seqs), *rest)
+
+    def full(o):
+        if o.dim() < 3 or o.shape[2] != 1:
+            return o
+        return o.new_empty(o.shape[:2] + (T,) + o.shape[3:])
+
+    return tuple(full(o) for o in out) if isinstance(out, tuple) \
+        else full(out)
+
+
+def _meta_heads(fn, qs: tuple, kvs: tuple):
+    """``fn(*qs, *kvs)`` on the meta device, where the plain attention
+    loops over batch rows and KV heads: it runs on batch row 0 and KV
+    head 0 (``qs`` cut to that head's group of query heads) under
+    ``meta_trips(B * Hkv)``. The caller shapes the outputs."""
+    B, H = qs[0].shape[:2]
+    Hkv = kvs[0].shape[1]
+    with meta_trips(B * Hkv):
+        return fn(*(x[:1, :H // Hkv] for x in qs),
+                  *(x[:1, :1] for x in kvs))
+
+
 def _needs_grad(*inputs) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
 
@@ -203,8 +270,17 @@ class FlashAttention(torch.autograd.Function):
         else:
             flash_attention_kernel.check_masks(q.shape[2], k.shape[2],
                                                causal, window)
-            res = ref.attention_ref(q, k, v, causal, window, softcap,
-                                    scale, with_lse=record)
+            if q.device.type == "meta":
+                _meta_heads(lambda q, k, v: ref.attention_ref(
+                    q, k, v, causal, window, softcap, scale,
+                    with_lse=record), (q,), (k, v))
+                o = q.new_empty(q.shape)
+                res = (o, q.new_empty(q.shape[:3],
+                                      dtype=ref._acc_dtype(q))) \
+                    if record else o
+            else:
+                res = ref.attention_ref(q, k, v, causal, window, softcap,
+                                        scale, with_lse=record)
         if not record:
             return res
         o, lse = res
@@ -219,6 +295,11 @@ class FlashAttention(torch.autograd.Function):
         if _route(q, "flash_attention backward"):
             grads = flash_attention_kernel.flash_attention_bwd_cuda(
                 q, k, v, o, lse, do, *ctx.args)
+        elif q.device.type == "meta":
+            _meta_heads(lambda q, o, lse, do, k, v: ref.attention_bwd_ref(
+                q, k, v, o, lse, do, *ctx.args), (q, o, lse, do), (k, v))
+            grads = (q.new_empty(q.shape), k.new_empty(k.shape),
+                     v.new_empty(v.shape))
         else:
             grads = ref.attention_bwd_ref(q, k, v, o, lse, do, *ctx.args)
         return (*grads, None, None, None, None, None)
@@ -227,13 +308,22 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """Softmax attention of q (B, H, Sq, D) over k, v (B, Hkv, Sk, D)
     with GQA, causal and sliding-window masks (rows and keys counted
     from 0) and logit soft-capping; f32 arithmetic, out in q's dtype.
     Refuses calls where a query row has no unmasked key. Differentiable
     (``FlashAttention``) where grad mode is on and an input requires
-    grad; otherwise the forward alone, which writes no log-sum-exp."""
+    grad; otherwise the forward alone, which writes no log-sum-exp.
+
+    ``block_q`` and ``block_k`` are the Pallas kernel's tile sizes, a TPU
+    choice: the Hopper kernel does not read them (it tiles by its own
+    rule), and values that are not positive integers raise."""
+    for name, b in (("block_q", block_q), ("block_k", block_k)):
+        if isinstance(b, bool) or not isinstance(b, int) or b < 1:
+            raise ValueError(f"flash_attention: {name} must be a positive "
+                             f"integer, got {b!r}")
     return FlashAttention.apply(q, k, v, causal, window, softcap, scale,
                                 _needs_grad(q, k, v))
 
@@ -249,6 +339,8 @@ class RWKV6(torch.autograd.Function):
         r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))
         if _route(r, "rwkv6_scan"):
             o = rwkv6_kernel.rwkv6_cuda(r, k, v, w, u, chunk)
+        elif r.device.type == "meta":
+            o = _meta_recurrence(ref.rwkv6_ref, (r, k, v, w), u)
         else:
             o = ref.rwkv6_ref(r, k, v, w, u)
         if record:
@@ -262,6 +354,11 @@ class RWKV6(torch.autograd.Function):
         do = do.to(r.dtype).contiguous()
         if _route(r, "rwkv6_scan backward"):
             grads = rwkv6_kernel.rwkv6_bwd_cuda(r, k, v, w, u, do, ctx.chunk)
+        elif r.device.type == "meta":
+            grads = _meta_recurrence(
+                lambda r, k, v, w, do: ref.rwkv6_bwd_ref(r, k, v, w, u, do,
+                                                         ctx.chunk),
+                (r, k, v, w, do))
         else:
             grads = ref.rwkv6_bwd_ref(r, k, v, w, u, do, ctx.chunk)
         return (*grads, None, None)

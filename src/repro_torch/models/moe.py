@@ -16,8 +16,11 @@ Three parity hazards shape the code:
 - The capacity rank is a cumulative count over the flattened (S*K)
   slots, token-major then k, so the dropped slots are the reference's.
 - The reference scatters dropped slots out of bounds with
-  ``mode="drop"``; here only the kept slots are written (``index_put_``
-  over unique (expert, rank) pairs, so the writes are deterministic).
+  ``mode="drop"``; here every slot is scattered, a kept one to its own
+  (expert, rank) row of the flattened expert buffers and a dropped one
+  to a dump row past them, which is cut off. The kept rows are unique,
+  so what stays is deterministic, and no shape depends on the data (the
+  dispatch runs on the meta device, for the dry-run).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .layers import _gelu, silu
 
@@ -131,15 +135,18 @@ def moe_apply(p: dict, x: torch.Tensor, *, mlp: str, num_experts: int,
     dropped = 1.0 - keep.sum(1).double() \
         / torch.clamp(active.sum(1), min=1).double()
 
-    # the kept slots (b, token * K + k) and their (expert, rank) places
-    bi, si = keep.nonzero(as_tuple=True)
-    ke, kr = flat_e[bi, si], rank[bi, si]
-    bufs = torch.zeros((B, E, C, d), dtype=x.dtype, device=dev)
-    bufs.index_put_((bi, ke, kr), x[bi, si // K])
-    out_bufs = _expert_mlp_grouped(mlp, p, bufs)          # (B, E, C, d)
-
-    gathered = torch.zeros((B, S * K, d), dtype=x.dtype, device=dev)
-    gathered[bi, si] = out_bufs[bi, ke, kr]
+    # each slot (b, token * K + k) to row expert * C + rank of the
+    # flattened (E * C) buffers where it is kept, else to dump row E * C
+    dest = torch.where(keep, flat_e * C + rank, E * C)
+    idx = dest[..., None].expand(B, S * K, d)
+    slots = x[:, :, None, :].expand(B, S, K, d).reshape(B, S * K, d)
+    bufs = torch.zeros((B, E * C + 1, d), dtype=x.dtype, device=dev)
+    bufs.scatter_(1, idx, slots)
+    out_bufs = _expert_mlp_grouped(
+        mlp, p, bufs[:, :E * C].reshape(B, E, C, d))       # (B, E, C, d)
+    # back to the slots; the dump row, now zeros, gives the dropped ones 0
+    gathered = F.pad(out_bufs.reshape(B, E * C, d), (0, 0, 0, 1)).gather(
+        1, idx)
     weighted = gathered * flat_w[..., None].to(x.dtype)
     out = weighted.reshape(B, S, K, d).sum(2) + heavy_out
     # means as XLA computes the reference's: the sum times 1 / B

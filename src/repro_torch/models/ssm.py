@@ -123,7 +123,8 @@ def _selective_scan(dt, dh, Bm, Cm, A) -> torch.Tensor:
     rounds as the reference's: the product s * da, the outer product
     dh B, then their sum. The (B, din, n) factors are formed
     ``SCAN_CHUNK`` steps at a time, so memory stays at a chunk's worth
-    of them."""
+    of them. On the meta device (the dry-run) a chunk runs its first
+    step, counted as many times as it has steps (``kops.meta_trips``)."""
     Bsz, S, din = dt.shape
     n = A.shape[1]
     s = torch.zeros((Bsz, din, n), dtype=torch.float32, device=dt.device)
@@ -134,7 +135,11 @@ def _selective_scan(dt, dh, Bm, Cm, A) -> torch.Tensor:
         c1 = min(c0 + SCAN_CHUNK, S)
         da = torch.exp(dt[:, c0:c1, :, None] * A)           # (B,c,din,n)
         db = dh[:, c0:c1, :, None] * Bm[:, c0:c1, None, :]
-        if record:
+        if dt.device.type == "meta":
+            with kops.meta_trips(c1 - c0):
+                s = s * da[:, 0] + db[:, 0]
+            states = s[:, None].expand(da.shape)
+        elif record:
             # autograd takes no out= and no in-place add on the saved
             # states: the same two roundings, out of place
             steps = []

@@ -9,9 +9,13 @@ Whisper's encoder-decoder (a bidirectional encoder over precomputed
 frame embeddings, cross-attention in every decoder layer). Params are
 the reference's nested dicts, stacked per pattern position with a
 leading ``n_blocks`` dim (the encoder's with ``enc_layers``); the
-blocks run in a Python loop where the reference scans them. The
-sharding annotations are left out (no mesh here); the axes stay in
-``param_defs``.
+blocks run in a Python loop where the reference scans them.
+``param_defs`` describes shapes and logical sharding axes (``fsdp``: the
+d_model dims of the attention, MLP and expert weights also over "data"),
+from which ``abstract_params`` (meta tensors, the dry-run's),
+``init_params``, ``param_shardings`` and ``param_pspecs`` derive; the
+activations are constrained where the reference constrains them
+(``sharding.constrain``, a no-op without a mesh).
 
 The caches are updated in place: ``decode_step`` writes the new KV
 entries, token shift, RWKV state and Mamba conv and ssm states into the
@@ -33,6 +37,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import tree as TR
 from ..columnar.table import resolve_device
+from . import sharding as SH
 from .config import LayerKind, ModelConfig
 from .layers import (chunked_attention, chunked_xent, decode_attention,
                      mlp_apply, mlp_param_shapes, rms_norm, rope)
@@ -58,22 +63,25 @@ class PD:
     init: str = "normal"   # normal | zeros | ones
 
 
-def _attn_defs(cfg: ModelConfig, cross: bool = False) -> Dict[str, PD]:
+def _attn_defs(cfg: ModelConfig, cross: bool = False,
+               fsdp: bool = False) -> Dict[str, PD]:
     d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pre = "x" if cross else ""
+    dd = "data" if fsdp else None
     return {
-        pre + "wq": PD((d, H * hd), (None, "model")),
-        pre + "wk": PD((d, Hkv * hd), (None, "model")),
-        pre + "wv": PD((d, Hkv * hd), (None, "model")),
-        pre + "wo": PD((H * hd, d), ("model", None)),
+        pre + "wq": PD((d, H * hd), (dd, "model")),
+        pre + "wk": PD((d, Hkv * hd), (dd, "model")),
+        pre + "wv": PD((d, Hkv * hd), (dd, "model")),
+        pre + "wo": PD((H * hd, d), ("model", dd)),
     }
 
 
-def _mlp_defs(cfg: ModelConfig) -> Dict[str, PD]:
+def _mlp_defs(cfg: ModelConfig, fsdp: bool = False) -> Dict[str, PD]:
     out = {}
+    dd = "data" if fsdp else None
     for name, shape in mlp_param_shapes(cfg.mlp, cfg.d_model,
                                         cfg.d_ff).items():
-        axes = (None, "model") if name.startswith("wi") else ("model", None)
+        axes = (dd, "model") if name.startswith("wi") else ("model", dd)
         out[name] = PD(shape, axes)
     return out
 
@@ -81,21 +89,23 @@ def _mlp_defs(cfg: ModelConfig) -> Dict[str, PD]:
 MODEL_AXIS_SIZE = 16  # the reference's production model axis
 
 
-def _moe_defs(cfg: ModelConfig) -> Dict[str, PD]:
+def _moe_defs(cfg: ModelConfig, fsdp: bool = False) -> Dict[str, PD]:
     """Expert-parallel axes where the experts divide the model axis
     (Arctic 128, Jamba 16), tensor-parallel inside each expert
-    otherwise (Mixtral 8), as the reference lays them out."""
+    otherwise (Mixtral 8), as the reference lays them out; ``fsdp`` also
+    shards the d_model dim over "data"."""
     m = cfg.moe
     ep = m.num_experts % MODEL_AXIS_SIZE == 0
+    dd = "data" if fsdp else None
     out = {}
     for name, shape in moe_param_shapes(cfg.d_model, m.d_ff_expert,
                                         m.num_experts, cfg.mlp).items():
         if name == "router":
             axes = (None, None)
         elif name.startswith("wi"):                      # (E, d, ff)
-            axes = ("model", None, None) if ep else (None, None, "model")
+            axes = ("model", dd, None) if ep else (None, dd, "model")
         else:                                            # wo (E, ff, d)
-            axes = ("model", None, None) if ep else (None, "model", None)
+            axes = ("model", None, dd) if ep else (None, "model", dd)
         out[name] = PD(shape, axes)
     return out
 
@@ -117,14 +127,14 @@ _RWKV_AXES = {
 }
 
 
-def _layer_defs(cfg: ModelConfig, pos: int, cross: bool = False
-                ) -> Dict[str, PD]:
+def _layer_defs(cfg: ModelConfig, pos: int, cross: bool = False,
+                fsdp: bool = False) -> Dict[str, PD]:
     kind = cfg.layer_kind(pos)
     d = cfg.d_model
     defs: Dict[str, PD] = {"ln": PD((d,), (None,), "zeros"),
                            "ln2": PD((d,), (None,), "zeros")}
     if kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
-        defs.update(_attn_defs(cfg))
+        defs.update(_attn_defs(cfg, fsdp=fsdp))
     elif kind == LayerKind.MAMBA:
         dt_rank = max(d // 16, 8)
         for name, shape in mamba_params(d, cfg.mamba_expand,
@@ -145,16 +155,16 @@ def _layer_defs(cfg: ModelConfig, pos: int, cross: bool = False
     else:
         raise ValueError(f"{cfg.name}: layer kind {kind}")
     if cross:
-        defs.update(_attn_defs(cfg, cross=True))
+        defs.update(_attn_defs(cfg, cross=True, fsdp=fsdp))
         defs["lnx"] = PD((d,), (None,), "zeros")
     if cfg.has_moe_at(pos):
-        for name, pd in _moe_defs(cfg).items():
+        for name, pd in _moe_defs(cfg, fsdp=fsdp).items():
             defs[f"moe_{name}"] = pd
         if cfg.moe.dense_residual:
-            for name, pd in _mlp_defs(cfg).items():
+            for name, pd in _mlp_defs(cfg, fsdp=fsdp).items():
                 defs[f"dense_{name}"] = pd
     else:
-        for name, pd in _mlp_defs(cfg).items():
+        for name, pd in _mlp_defs(cfg, fsdp=fsdp).items():
             defs[f"mlp_{name}"] = pd
     return defs
 
@@ -164,8 +174,10 @@ def _stacked(n: int, layer: Dict[str, PD]) -> Dict[str, PD]:
             for name, pd in layer.items()}
 
 
-def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The reference's parameter tree (names, shapes, axes, init kinds)."""
+def param_defs(cfg: ModelConfig, fsdp: bool = False) -> Dict[str, Any]:
+    """The reference's parameter tree (names, shapes, axes, init kinds);
+    ``fsdp`` as the reference's (the encoder's stay unsharded over
+    "data")."""
     d, V = cfg.d_model, cfg.vocab
     defs: Dict[str, Any] = {
         "embed": PD((V, d), (None, "model")),
@@ -175,7 +187,7 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
         defs["head"] = PD((V, d), (None, "model"))
     defs["blocks"] = {
         str(pos): _stacked(cfg.n_blocks, _layer_defs(
-            cfg, pos, cross=cfg.cross_attention))
+            cfg, pos, cross=cfg.cross_attention, fsdp=fsdp))
         for pos in range(cfg.period)}
     if cfg.enc_layers:
         defs["encoder"] = _stacked(cfg.enc_layers, _layer_defs(
@@ -188,6 +200,24 @@ def _leaf_map(fn, defs, path=()):
     if isinstance(defs, PD):
         return fn(path, defs)
     return {k: _leaf_map(fn, v, path + (k,)) for k, v in sorted(defs.items())}
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameters as tensors of the model dtype on the ``meta``
+    device: shapes without memory (``init_params`` cannot draw there)."""
+    dt = model_dtype(cfg)
+    return _leaf_map(lambda _, pd: torch.empty(pd.shape, dtype=dt,
+                                               device="meta"),
+                     param_defs(cfg))
+
+
+def param_shardings(cfg: ModelConfig, fsdp: bool = False):
+    return _leaf_map(lambda _, pd: SH.named_sharding(*pd.axes),
+                     param_defs(cfg, fsdp=fsdp))
+
+
+def param_pspecs(cfg: ModelConfig):
+    return _leaf_map(lambda _, pd: SH.pspec(*pd.axes), param_defs(cfg))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None
@@ -353,6 +383,11 @@ def _apply_layer(cfg: ModelConfig, pos: int, p: dict, x, positions,
     ``enc_out``: cross-attention over it after the mixer (Whisper's
     decoder)."""
     kind = cfg.layer_kind(pos)
+    # between layers the residual stream is sequence-sharded over the
+    # model axis (the reference's Megatron-SP constraint); no-op without
+    # a mesh or at S == 1
+    if x.shape[1] > 1 and x.shape[1] % 16 == 0:
+        x = SH.constrain(x, "dp", "model", None)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     if kind in (LayerKind.ATTN, LayerKind.ATTN_LOCAL):
         if not causal:
@@ -455,7 +490,8 @@ def forward(cfg: ModelConfig, params, tokens, embeds_prefix=None,
             raise ValueError(f"{cfg.name}: forward needs enc_embeds, the "
                              f"encoder's frame embeddings")
         enc_out = _encoder(cfg, params, enc_embeds)
-    x = embed_tokens(cfg, params, tokens, embeds_prefix)
+    x = SH.constrain(embed_tokens(cfg, params, tokens, embeds_prefix),
+                     "dp", None, None)
     positions = torch.arange(x.shape[1], device=x.device)
     for b in range(cfg.n_blocks):
         blk = {str(pos): _block(params, pos, b) for pos in range(cfg.period)}

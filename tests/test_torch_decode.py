@@ -9,6 +9,7 @@ tested in ``test_torch_cuda.py``."""
 
 import os
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -225,11 +226,15 @@ def test_dispatch_counts_only_launches_and_writes_out():
         assert got is out and torch.equal(out, want), name
     assert all(v == 0 for v in TK.launch_counts().values()), \
         TK.launch_counts()
+    # the meta device (the dry-run's) takes the plain versions; a device
+    # with neither a kernel nor a plain version raises
     meta = torch.zeros(4, dtype=torch.int64, device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        TK.dict_gather(meta, meta)
-    with pytest.raises(ValueError, match="meta"):
-        TK.delta_unpack(meta.to(torch.uint8), 0)
+    for out in (TK.dict_gather(meta, meta),
+                TK.delta_unpack(meta.to(torch.uint8), 0)):
+        assert out.device.type == "meta" and out.shape == (4,)
+    with pytest.raises(ValueError, match="no kernel"):
+        TK._route(SimpleNamespace(device=torch.device("xpu")),
+                  "dict_gather")
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -596,6 +596,33 @@ def test_published_counters(both):
 # the virtual mesh itself (port only)
 # ---------------------------------------------------------------------------
 
+def test_one_site_context_builds_on_the_device_resolve_device_gives():
+    """``DistContext(axis, 1)`` builds its own rendezvous, as the
+    reference's one-site context builds, and puts its metrics where
+    ``resolve_device`` puts every other entry point's."""
+    from repro_torch.columnar.table import resolve_device
+    from repro_torch.exec.dist import DistContext
+    ctx = DistContext("data", 1, device="cpu")
+    assert ctx.P == 1 and ctx.device == resolve_device("cpu")
+    got = ctx._psum(torch.tensor([3, 4]))
+    assert torch.equal(got, torch.tensor([3, 4]))
+    assert torch.equal(ctx._all_to_all(torch.tensor([[5]])),
+                       torch.tensor([[5]]))
+    try:
+        want = resolve_device(None)
+    except RuntimeError as e:
+        with pytest.raises(RuntimeError, match=str(e)[:20]):
+            DistContext("data", 1)
+    else:
+        assert DistContext("data", 1).device == want
+
+
+def test_virtual_mesh_has_axis_names():
+    from repro_torch.exec.dist import device_mesh_1d
+    mesh = device_mesh_1d(4, "pod", device="cpu")
+    assert mesh.axis_names == ("pod",) and mesh.shape == {"pod": 4}
+
+
 def _port_kv(n=64):
     from repro_torch.columnar.table import FlatBag
     return FlatBag.from_rows([{"k": i % 13, "v": float(i)}

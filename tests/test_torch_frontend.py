@@ -59,7 +59,9 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.train.train_loop, repro_torch.train.checkpoint\n"
         "import repro_torch.train.elastic, repro_torch.tree\n"
         "import repro_torch.data.pipeline, repro_torch.launch\n"
-        "import repro_torch.launch.train\n"
+        "import repro_torch.launch.train, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hlo_analysis\n"
+        "import repro_torch.models.sharding, repro_torch.train.compression\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

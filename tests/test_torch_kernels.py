@@ -6,6 +6,7 @@ CUDA kernels themselves are tested in ``test_torch_cuda.py``."""
 
 import os
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -111,9 +112,14 @@ def test_dispatch_counts_only_launches_and_refuses_other_devices():
         "dict_gather": 0, "member_mask": 0, "pack_rows": 0,
         "unpack_cols": 0, "replicate_scatter": 0, "flash_attention": 0,
         "flash_attention_bwd": 0, "rwkv6": 0, "rwkv6_bwd": 0}
+    # the meta device (the dry-run's) takes the plain version; a device
+    # with neither a kernel nor a plain version raises
     meta = torch.zeros(4, dtype=torch.int64, device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        TK.merge_positions(meta, meta)
+    assert all(t.device.type == "meta" and t.shape == (4,)
+               for t in TK.merge_positions(meta, meta))
+    with pytest.raises(ValueError, match="no kernel"):
+        TK._route(SimpleNamespace(device=torch.device("xpu")),
+                  "merge_positions")
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -429,9 +429,10 @@ def test_cuda_wrappers_refuse_cpu_and_bad_inputs():
     u = torch.zeros(2, 8)
     with pytest.raises(ValueError, match="cpu"):
         TRW.rwkv6_cuda(r, r, r, r, u)
+    # the meta device (the dry-run's) takes the plain versions: outputs
+    # of the right shape, no data
     meta = torch.zeros(1, 2, 5, 8, device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        TK.flash_attention(meta, meta, meta)
-    with pytest.raises(ValueError, match="meta"):
-        TK.rwkv6_scan(meta, meta, meta, meta, torch.zeros(2, 8,
-                                                          device="meta"))
+    for out in (TK.flash_attention(meta, meta, meta),
+                TK.rwkv6_scan(meta, meta, meta, meta,
+                              torch.zeros(2, 8, device="meta"))):
+        assert out.device.type == "meta" and out.shape == meta.shape

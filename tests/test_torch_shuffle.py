@@ -11,6 +11,8 @@ dispatch in ``kernels/ops.py`` runs the plain versions; the CUDA kernels
 are held against them in ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -167,9 +169,14 @@ def test_member_mask_matches_reference(n, n_heavy, seed, shuffle):
 
 
 def test_wrappers_refuse_other_devices():
-    meta = torch.zeros((3, 2), dtype=torch.int64, device="meta")
+    """A device with neither a kernel nor a plain version raises; the
+    meta device (the dry-run's) takes the plain version."""
+    other = SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="no kernel"):
-        TK.unpack_cols(meta)
+        TK._route(other, "unpack_cols")
+    meta = torch.zeros((3, 2), dtype=torch.int64, device="meta")
+    out = TK.unpack_cols(meta)
+    assert out.device.type == "meta" and out.shape == (2, 3)
 
 
 def test_cpu_calls_launch_nothing():

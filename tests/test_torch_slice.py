@@ -127,6 +127,29 @@ def test_quickstart_end_to_end(reference_kernels, use_kernel):
     assert RI.bags_equal(RI.eval_expr(rq, inputs), got)
 
 
+def test_jit_program_donates_the_env_as_the_reference_accepts():
+    """``jit_program(cp, donate_env=True)``, the reference's call: the
+    outputs equal the reference's, and the executable drops the env it
+    was given (an emptied dict), where the reference deletes the donated
+    buffers."""
+    (rq, rsp, rcp), (tq, tsp, tcp) = compile_both(
+        lambda N: quickstart(N)[0], lambda N: quickstart(N)[1],
+        lambda C: C(unique_keys={"Part__F": ("pid",)}))
+    inputs = {"COP": QS_COP, "Part": QS_PARTS}
+    rout = RCG.jit_program(rcp, donate_env=True)(
+        RCG.columnar_shred_inputs(inputs, quickstart(RN)[1]))
+    tenv = TCG.columnar_shred_inputs(inputs, quickstart(TN)[1],
+                                     device="cpu")
+    names = set(tenv)
+    tout = TCG.jit_program(tcp, donate_env=True)(tenv)
+    outputs_equal(rout, tout, rcp.outputs)
+    assert names and tenv == {}
+    kept = TCG.columnar_shred_inputs(inputs, quickstart(TN)[1],
+                                     device="cpu")
+    TCG.jit_program(tcp)(kept)
+    assert set(kept) == names
+
+
 # ---------------------------------------------------------------------------
 # nested TPC-H, levels 1-3
 # ---------------------------------------------------------------------------

@@ -2,10 +2,11 @@
 step (loss, gradients, optimizer state) of all ten smoke configs in
 float32 with AdamW and Adafactor and 1 or 2 microbatches,
 ``apply_updates``, ``lr_at`` and ``_global_norm`` given the reference's
-inputs, the reference's own fault-tolerance tests (``tests/test_train.py``
-but the int8 compression, which waits for a later slice) run against
-the port, and the launcher's checkpoint and resume. Inputs come from
-numpy seeds and go through both packages."""
+inputs, the reference's own fault-tolerance tests
+(``tests/test_train.py``; its int8 compression case runs in
+``tests/test_torch_compression.py``) run against the port, and the
+launcher's checkpoint and resume. Inputs come from numpy seeds and go
+through both packages."""
 
 import os
 import signal
