@@ -39,7 +39,11 @@ wrong or if there is no CUDA device. Phases:
                boundary), member_mask on its sorted path (sets of 0 to
                256 keys, duplicates and padding between, keys off a
                16-byte boundary) and its staged one (257 to 5,000 keys),
-               two launches bit-identical;
+               dict_gather on both sides of its staging limit (r =
+               4,096, 4,097, the largest staged r and one more, 65,536;
+               codes 0-15 bytes and ``out`` 8 bytes off a 16-byte
+               boundary; more warp tiles than the grid has warps), two
+               launches bit-identical;
   A quickstart examples/quickstart.py's query with use_kernel=True
                matches the port's interpreter;
   B n2n TPC-H level 2, domain elimination on, at the SF10 order count:
@@ -71,7 +75,13 @@ wrong or if there is no CUDA device. Phases:
                rle_expand also on a constant column (one run of 2^20
                rows), and the device operations of its calls by name
                with their times (two kernels and one memset), and of
-               delta_unpack's (one kernel and one memset);
+               delta_unpack's (one kernel and one memset); dict_gather's
+               host time a call by step (1,000 calls each), then two
+               more dict chunks of 2^20 int64 rows with r = 4,096 and
+               65,536 distinct values from [0, 2^40) (choose_encoding
+               picks dict, uint16 codes), decoded by _decode_device
+               bit-equal to the codec and timed the same way, two
+               launches bit-identical;
   D stored     the SF5 data written by DatasetWriter.write_parts with
                encoding="auto" and 2^20-row chunks (host time with no
                profiler, bytes and codecs per part), reopened on the
@@ -287,7 +297,8 @@ wrong or if there is no CUDA device. Phases:
 The last three lines: nvidia-smi's name and power limit, the per-kernel
 JSON records (phase B's join kernels, gather_rows at each width; D0's
 decode kernels with D's launch counts, bitunpack's from D0 since no
-column of this data picks bitpack, rle_expand also at one run; F's
+column of this data picks bitpack, rle_expand also at one run,
+dict_gather also at r = 4,096 and 65,536; F's
 segment_sum_first, member_mask, pack_rows and unpack_cols;
 G's replicate_scatter; J's segment_reduce at (a) and at (b) with d = 4;
 K's rwkv6; S's rwkv6_bwd; L's flash_attention at a local and a global
@@ -410,12 +421,13 @@ KERNELS = {
 }
 JOIN_KERNELS = ("segment_sum_first", "merge_positions", "gather_rows")
 DECODE_KERNELS = ("rle_expand", "delta_unpack", "bitunpack", "dict_gather")
+DICT_SIZES = (4096, 65536)  # phase D0's dict chunks beside qty's
 SHUFFLE_KERNELS = ("member_mask", "pack_rows", "unpack_cols",
                    "replicate_scatter")
 # the kernels whose edge cases phase 2 also launches twice
 REPEATED = ("segment_sum_first", "merge_positions", "gather_rows",
-            "rle_expand", "delta_unpack", "member_mask", "pack_rows",
-            "replicate_scatter")
+            "rle_expand", "delta_unpack", "dict_gather", "member_mask",
+            "pack_rows", "replicate_scatter")
 
 
 def log(*a):
@@ -725,12 +737,13 @@ def decode_fns(name: str, args: tuple):
                 lambda: R.bitunpack_ref(words, k, vpw, n, lo), None,
                 4 * words.shape[0] + 8 * n)
     assert name == "dict_gather", name
-    values, codes = args
+    values, codes = args[:2]
+    out = args[2] if len(args) > 2 else None
     r, n = values.shape[0], codes.shape[0]
     idx = codes.to(torch.int64)
     in_range = bool(((idx >= 0) & (idx < r)).all())
     library = (lambda: values[idx]) if in_range and r else None
-    return (lambda: D.dict_gather_cuda(values, codes),
+    return (lambda: D.dict_gather_cuda(values, codes, out=out),
             lambda: R.dict_gather_ref(values, codes), library,
             8 * r + codes.element_size() * n + 8 * n)
 
@@ -1498,7 +1511,7 @@ def decode_edge_cases(dev, large: bool = True) -> list:
         delta(rng.randint(i64_min, I64_MAX, 70000, dtype=np.int64))
         delta(np.cumsum(rng.randint(-100, 100, 70000)))
         bitunpack(6, 14000, -1)
-        dict_(5000, rng.randint(-1, 5001, 70000), torch.int32)  # global
+        dict_(5000, rng.randint(-1, 5001, 70000), torch.int32)  # staged
         dict_(49, rng.randint(0, 49, 70000), torch.uint8)
         cases += rle_card_cases(np.random.RandomState(12), dev)
         cases += delta_card_cases(np.random.RandomState(14), dev)
@@ -1587,6 +1600,49 @@ def delta_card_cases(rng, dev) -> list:
     delta(np.uint64, 300_007, 8, out_skip=1)             # wraps; out off
     delta(np.uint16, 70001, 6, out_skip=2)               # out aligned
     delta(np.uint64, 9000, 0, out_skip=1)
+    return cases
+
+
+def dict_card_cases(rng, dev) -> list:
+    """dict_gather on both sides of its staging limit: r = 4,096, 4,097,
+    the largest staged r (``decode.DICT_STAGE_MAX``) and one more, and
+    65,536, each with every code kind whose codes reach r (uint8 only
+    below 256 entries: its codes stay in range), codes viewed at an
+    offset from 0 to 15 bytes that their width allows with random bytes
+    around them, a tenth of them out of range (-1 and r as int32, r and
+    the largest uint32 as uint32, r as uint16 where it fits), ``out``
+    given 8 bytes off a 16-byte boundary, on one, or not given; then a
+    staged (r = 49, uint8) and an unstaged (r = 65,536, uint16) chunk
+    with more 16-byte vectors of codes than the grid has threads (each
+    thread walks two or more). A case is (values, codes) or (values,
+    codes, out)."""
+    from repro_torch.kernels import decode as D
+    i64 = np.iinfo(np.int64)
+    cases = []
+
+    def dict_(r, dt, n, skip, out_skip=None):
+        values = rng.randint(i64.min, i64.max, r, dtype=np.int64)
+        top = np.iinfo(dt).max
+        codes = rng.randint(0, min(r, top + 1), n).astype(np.int64)
+        bad = rng.rand(n) < 0.1
+        wrong = [r, -1] if dt == np.int32 else [r, top]
+        codes[bad] = rng.choice([c for c in wrong if 0 <= c <= top or
+                                 dt == np.int32], int(bad.sum()))
+        args = (torch.from_numpy(values).to(dev),
+                bytes_view(codes.astype(dt), skip, dev))
+        if out_skip is not None:
+            big = torch.empty((n + out_skip,), dtype=torch.int64, device=dev)
+            args += (big[out_skip:],)
+        cases.append(("dict_gather", args))
+
+    for r in (4096, 4097, D.DICT_STAGE_MAX, D.DICT_STAGE_MAX + 1, 65536):
+        for dt in (np.uint16, np.uint32, np.int32):
+            w = np.dtype(dt).itemsize
+            for skip in range(0, 16, w):
+                out_skip = (None, 1, 0)[(skip // w + r) % 3]
+                dict_(r, dt, 70001 + skip, skip, out_skip)
+    dict_(49, np.uint8, (1 << 22) + 13, 3, out_skip=1)
+    dict_(65536, np.uint16, (1 << 21) + 5, 6)
     return cases
 
 
@@ -1806,8 +1862,12 @@ def phase_build() -> None:
 
 def phase_kernels(dev) -> None:
     n = 0
+    t0 = time.perf_counter()
+    dict_cases = dict_card_cases(np.random.RandomState(15), dev)
+    dict_s = time.perf_counter() - t0   # the time of dict_gather's cases
     for name, args in edge_cases(dev) + reduce_edge_cases(dev) \
-            + decode_edge_cases(dev) + shuffle_edge_cases(dev):
+            + decode_edge_cases(dev) + dict_cases + shuffle_edge_cases(dev):
+        t0 = time.perf_counter()
         kern, plain, _, _ = kernel_fns(name, args)
         got = kern()
         err = max_abs_err(got, plain())
@@ -1820,9 +1880,12 @@ def phase_kernels(dev) -> None:
         assert err == 0.0, (name, [tuple(a.shape) if torch.is_tensor(a)
                                    else a for a in args], err)
         n += 1
+        if name == "dict_gather":
+            dict_s += time.perf_counter() - t0
     log(f"[2 kernels] {n} edge cases: every kernel bit-exact against its "
         f"plain version ({', '.join(REPEATED)}: two launches "
-        f"bit-identical)")
+        f"bit-identical); dict_gather's {len(dict_cases)} cases around its "
+        f"staging limit made and checked in {dict_s:.1f} s")
 
 
 def phase_quickstart(dev) -> None:
@@ -1951,14 +2014,112 @@ def phase_tpch(tag: str, scale: int, seed: int, domain_elimination: bool,
     return recs
 
 
-def phase_decode(env_np: dict, dev) -> list:
+def dict_chunk(r: int, seed: int) -> np.ndarray:
+    """A 2^20-row int64 chunk of ``r`` distinct values drawn from
+    [0, 2^40), each in it at least once, in random order. Spread over
+    more than 2^32 (zigzag deltas of 8 bytes) and over more than 16 bits
+    (no bitpack), with r <= 65,536 it is stored as ``dict`` with uint16
+    codes."""
+    rng = np.random.RandomState([seed, r])
+    vals = rng.permutation(np.unique(rng.randint(0, 1 << 40, 2 * r,
+                                                 dtype=np.int64)))[:r]
+    a = vals[rng.randint(0, r, CHUNK_ROWS)]
+    a[rng.permutation(CHUNK_ROWS)[:r]] = vals
+    return a
+
+
+def dict_host_split(values: torch.Tensor, codes: torch.Tensor,
+                    calls: int = 1000) -> dict:
+    """Host time of one ``dict_gather_cuda`` call by step, in us, each
+    step timed by ``host_us`` over ``calls`` calls: the
+    inputs checked (with an ``out`` given), the output allocated, the
+    current device read and compared, the current stream's raw handle,
+    the ctypes call with no rows (no launch) and with the chunk's rows
+    (its launch and cudaGetLastError; these launches are not counted),
+    the locked count; the whole call, and the library call
+    ``values[idx]`` beside it (int64 ``idx``); and the two steps that
+    the launch helper no longer takes: a ``torch.cuda.device`` context
+    entered and left, and a ``torch.cuda.Stream`` object built for its
+    handle."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode as D
+    n, r = codes.shape[0], values.shape[0]
+    index = codes.get_device()
+    fn = D._fn("dict_gather_launch", D._DICT_ARGS)
+    C = torch._C
+    out = codes.new_empty(n, dtype=torch.int64)
+    stream = C._cuda_getCurrentRawStream(index)
+    kind = D._CODE_KIND[codes.dtype]
+    idx = codes.to(torch.int64)
+    counts = {"n": 0}
+
+    def count():
+        with build._COUNT_LOCK:
+            counts["n"] += 1
+
+    def device_context():
+        with torch.cuda.device(values.device):
+            pass
+
+    steps = {
+        "inputs checked": lambda: D._args("dict_gather_cuda", D._DICT_KINDS,
+                                          (values, codes), out, n),
+        "output allocated": lambda: codes.new_empty(n, dtype=torch.int64),
+        "device compared": lambda: C._cuda_getDevice() == index,
+        "raw stream": lambda: C._cuda_getCurrentRawStream(index),
+        "ctypes call, no rows":
+            lambda: fn(values.data_ptr(), r, codes.data_ptr(), kind, 0,
+                       out.data_ptr(), stream),
+        "ctypes call with the launch":
+            lambda: fn(values.data_ptr(), r, codes.data_ptr(), kind, n,
+                       out.data_ptr(), stream),
+        "count": count,
+        "the whole call": lambda: D.dict_gather_cuda(values, codes),
+        "the library call values[idx]": lambda: values[idx],
+        "torch.cuda.device context (gone)": device_context,
+        "torch.cuda.Stream object (gone)":
+            lambda: torch.cuda.current_stream(values.device).cuda_stream,
+    }
+    return {name: host_us(step, calls) for name, step in steps.items()}
+
+
+def host_us(step, calls: int = 1000, per: int = 10) -> float:
+    """Host time of ``step()`` in us a call, by ``time.perf_counter_ns``
+    over ``calls`` calls made ``per`` at a time with a synchronize
+    (not timed) between: launches never wait for room in the card's
+    queue, so the time is the host's own."""
+    step()
+    torch.cuda.synchronize()
+    ns = 0
+    for _ in range(calls // per):
+        t0 = time.perf_counter_ns()
+        for _ in range(per):
+            step()
+        ns += time.perf_counter_ns() - t0
+        torch.cuda.synchronize()
+    return ns / (calls // per * per) / 1e3
+
+
+def twice_alike(values: torch.Tensor, codes: torch.Tensor) -> None:
+    """Two launches of dict_gather on the same inputs: bit-identical."""
+    from repro_torch.kernels import decode as D
+    a, b = D.dict_gather_cuda(values, codes), D.dict_gather_cuda(values,
+                                                                 codes)
+    assert torch.equal(a, b), "dict_gather: two launches differ"
+
+
+def phase_decode(env_np: dict, seed: int, dev) -> list:
     """Phase D0: one 2^20-row chunk per codec, from columns of the SF5
-    data, encoded by ``encodings.encode_chunk`` and decoded on the card
-    through the reader's own ``_decode_device``: bit-equal to
-    ``encodings.decode_chunk``; then each kernel at that chunk's shape,
-    timed. Returns the records; ``launches`` is filled in by phase D."""
+    data, and two more dict chunks of r = 4,096 and 65,536 distinct
+    values made from ``seed``, encoded by ``encodings.encode_chunk``
+    and decoded on the card through the reader's own
+    ``_decode_device``: bit-equal to ``encodings.decode_chunk``; then
+    each kernel at that chunk's shape, timed, and dict_gather's host
+    time by step. Returns the records; ``launches`` is filled in by
+    phase D."""
     from repro_torch.kernels import ops as kops
     from repro_torch.storage import encodings as E
+    from repro_torch.storage import format as FMT
     from repro_torch.storage import reader as RD
     li = env_np["NCOP2__D_corders_oparts"][0]
     n = CHUNK_ROWS
@@ -1988,6 +2149,37 @@ def phase_decode(env_np: dict, dev) -> list:
     log(f"[D0 decode] launches {counts}")
     recs = measure_kernels(cap.args, counts, "D0")
     from repro_torch.kernels import decode as D
+    values, codes = cap.args["dict_gather"][:2]
+    t0 = time.perf_counter()
+    twice_alike(values, codes)
+    split = dict_host_split(values, codes)
+    log(f"[D0 dict_gather] host time a call by step (us, each over 1000 "
+        f"calls at D0's qty chunk): "
+        f"{ {k: round(v, 2) for k, v in split.items()} }")
+    for r in DICT_SIZES:
+        a = dict_chunk(r, seed)
+        zs = FMT.zone_stats(a)
+        assert E.choose_encoding(a, zs) == "dict" and zs["distinct"] == r, \
+            (r, E.choose_encoding(a, zs), zs["distinct"])
+        enc, blob = E.encode_chunk(a, "dict")
+        with CaptureLargestCalls(("dict_gather",)) as big:
+            got = RD._decode_device(enc, blob, dev)
+        torch.cuda.synchronize()
+        assert got.cpu().numpy().tobytes() == \
+            E.decode_chunk(enc, blob).tobytes(), r
+        members = {m[0]: f"{m[2]} x {m[1]}" for m in enc["members"]}
+        log(f"[D0 decode] dict chunk of {r} distinct int64 values from "
+            f"[0, 2^40) ({n} rows, {blob.nbytes} bytes encoded, {a.nbytes} "
+            f"raw): choose_encoding picks dict; members {members}; "
+            f"_decode_device bit-equal to decode_chunk")
+        for rec in measure_kernels(big.args, counts, f"D0 dict r={r}"):
+            rec["shape"] = f"r={r} int64 values, {n} uint16 codes"
+            recs.append(rec)
+        twice_alike(*big.args["dict_gather"][:2])
+        log(f"[D0 dict r={r}] dict_gather: two launches bit-identical")
+        del got, big
+    log(f"[D0 dict_gather] the host split and the two dict chunks took "
+        f"{time.perf_counter() - t0:.1f} s")
     values, lengths, rows = cap.args["rle_expand"][:3]
     call_kernels("rle_expand",
                  lambda: D.rle_expand_cuda(values, lengths, rows),
@@ -2085,7 +2277,7 @@ def phase_stored(seed: int, dev):
     log(f"[D stored] scale={SCALE_D} orders, seed={seed}: "
         f"{ {k: int(v[1].shape[0]) for k, v in env_np.items()} } "
         f"(generated in {time.perf_counter() - t0:.1f} s)")
-    recs = phase_decode(env_np, dev)
+    recs = phase_decode(env_np, seed, dev)
     part_t, ncop2_t = tpch_types()
     types = {"NCOP2": ncop2_t, "Part": part_t}
     catalog = Catalog(unique_keys={"Part__F": ("pid",)})

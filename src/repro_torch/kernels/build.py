@@ -25,6 +25,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -116,20 +118,29 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def bump(namespace: dict, counter: str) -> None:
-    """Add one to the launch counter ``counter`` of a kernel module
-    (``namespace`` is its ``globals()``). The distributed path launches
-    from one thread per site, so the add holds a lock."""
-    with _COUNT_LOCK:
-        namespace[counter] += 1
+def launch(fn, index: int, args: tuple, what: str, counts: dict,
+           counter: str) -> None:
+    """Call the C entry point ``fn(*args, stream)`` on CUDA device
+    ``index`` and count the launch: every wrapper launches through here.
 
-
-def check(err: int, what: str) -> None:
-    """Raise on a nonzero ``cudaGetLastError()`` from a C entry point."""
+    ``stream`` is the device's current stream as a raw handle, read on
+    every call, so that a caller's ``torch.cuda.stream(s)`` is honoured.
+    The current device is switched to ``index`` only where it differs,
+    and back after. A nonzero return (the entry point's
+    ``cudaGetLastError()``) raises; else ``counts[counter]`` (a kernel
+    module's ``globals()`` or a dict of counts) gains one, under a lock,
+    since the distributed path launches from one thread per site."""
+    C = torch._C
+    prev = C._cuda_getDevice()
+    if prev == index:
+        err = fn(*args, C._cuda_getCurrentRawStream(index))
+    else:
+        C._cuda_setDevice(index)
+        try:
+            err = fn(*args, C._cuda_getCurrentRawStream(index))
+        finally:
+            C._cuda_setDevice(prev)
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
-
-
-def stream_handle(device: Optional[object] = None) -> int:
-    import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    with _COUNT_LOCK:
+        counts[counter] += 1

@@ -103,9 +103,63 @@
 // dict_gather replaces decode.py · dict_gather_pallas:
 //   out[i] = values[codes[i]], 0 for a code outside [0, r). The Pallas
 //   kernel compared every row with every dictionary entry; here it is
-//   one load per row, from shared memory when the dictionary fits in
-//   32 KB (one chunk's distinct values; qty has 49), else through the
-//   read-only cache. Codes are read at their stored width.
+//   one load a row, from the dictionary staged in shared memory or, for
+//   a larger one, through L1.
+//   - The grid: persistent, one block of DICT_THREADS = 512 threads on
+//     each SM (fewer blocks when the chunk has fewer warp tiles). A warp
+//     tile is 32 16-byte vectors of codes, 512 bytes: 512, 256 or 128
+//     rows. Tile t goes to warp t of the grid, then t + the grid's warps
+//     and so on, the warps counted block by block first (warp w of block
+//     b is the grid's warp w * blocks + b), so that a chunk with fewer
+//     tiles than the grid has warps still keeps every SM busy.
+//   - The staging: where r <= DICT_STAGE_MAX, each block copies the r
+//     entries into shared memory once, before its first row, each thread
+//     DICT_STAGE_LOADS loads in flight at a time, and looks every row up
+//     there; each warp issues the load of its first tile before the
+//     copy, so the two overlap. Above 48 KB the kernel opts in to more
+//     shared memory. DICT_STAGE_MAX = 28,032 is the most that fits in
+//     the 227 KB a block may have beside the warps' 8 KB of codes: a
+//     random lookup in shared memory costs a few bank conflicts, one
+//     through L1 about a cycle of the SM's L1 for each row, and staging
+//     timed faster than the L1 path up to that size, its 219 KB a block
+//     of L2 reads included (tools/dict_gather_sizes.py times r =
+//     28,032 and 28,033 side by side). Above it the entries come through
+//     __ldg, with L1 given all of the SM's memory that the codes' stage
+//     leaves.
+//   - The vectors: each lane loads one 16-byte vector of its warp's tile
+//     (16, 8 or 4 codes at 1, 2 or 4 bytes), a warp 512 consecutive
+//     bytes, and the next tile's while it works on this one. The tile
+//     goes through 512 bytes of shared memory a warp, so that lane l
+//     then takes rows 2p and 2p + 1 for p = l, l + 32, ...: their two
+//     codes in one shared-memory load, their two entries, and one
+//     16-byte streaming store (st.global.cs: nothing reads the rows back
+//     here), a warp's stores 512 consecutive bytes. A full tile looks up
+//     all of a lane's entries before its stores.
+//   - The head and tail: the body starts at the first 16-byte boundary
+//     at or after codes; the `head` rows before it, and the rows after
+//     the last full vector (fewer than one vector), are read and written
+//     one at a time by the first threads of block 0. Where out's rows of
+//     the body start 8 bytes off a 16-byte boundary, a tile's stores
+//     pair rows 2p + 1 and 2p + 2 instead, and its first and last row
+//     take an 8-byte store each. Nothing is copied to align either
+//     pointer.
+//   - The byte bound is 8 r + code_bytes n + 8 n (chip_smoke.decode_fns
+//     counts it so): the dictionary, the codes and the rows, each once.
+//     The staging's reads are not in it: at r = 4,096 the 132 blocks read
+//     32 KB each from L2, 4.3 MB in all beside a 2^20-row chunk's 8.4 MB
+//     of output, while the first codes are in flight.
+//   What holds it back above DICT_STAGE_MAX is L1: a warp's 32 random
+//   lookups take about 32 of its cycles, and a dictionary of 512 KB (r =
+//   65,536) mostly misses it; 2^20 rows then take about 3 times the
+//   byte bound, as the kernel it replaces did. Tried and dropped, each
+//   slower (a script kept out of the tree): one lane's codes written by
+//   that lane as consecutive rows (a warp's stores 32 lines apart), the
+//   dictionary split over the shared memory of a cluster of 8 blocks
+//   and read through distributed shared memory (slower than L2 at every
+//   r), 1024- and 256-thread blocks, two and four blocks an SM, and
+//   lookups through L2 alone (ld.global.cg, .cs).
+//   codes are read at their stored width; int32 codes below 0 are out
+//   of range like those >= r.
 //
 // What bounds them on the card: bytes. Each must read its members once
 // at their stored widths and write 8 bytes per output row; the one-byte
@@ -116,6 +170,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -136,8 +192,23 @@ constexpr int DELTA_TILE = DELTA_THREADS * DELTA_ITEMS;  // rows a tile
 constexpr int DELTA_SLOTS = DELTA_TILE + 2 + DELTA_TILE / 8;
 constexpr unsigned DELTA_AGGREGATE = 1, DELTA_PREFIX = 2;  // flags
 
-constexpr int GATHER_THREADS = 256;
-constexpr int DICT_SMEM_MAX = 4096;  // entries: 32 KB of int64
+constexpr int GATHER_THREADS = 256;  // bitunpack's blocks
+constexpr int DICT_THREADS = 512;
+constexpr int DICT_STAGE_MAX = 28032;  // entries staged (see the note)
+constexpr int DICT_STAGE_LOADS = 8;  // staging loads a thread in flight
+constexpr int DEFAULT_SMEM = 48 * 1024;  // bytes a block may use unasked
+
+// the device's SM count, read once a device
+int sm_count(int dev) {
+  static std::atomic<int> known[64];
+  if (dev < 0 || dev >= 64) return 0;
+  int sms = known[dev].load(std::memory_order_relaxed);
+  if (sms == 0 &&
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+          cudaSuccess)
+    known[dev].store(sms, std::memory_order_relaxed);
+  return sms;
+}
 
 __device__ __forceinline__ uint64_t warp_inclusive(uint64_t v) {
   const int lane = threadIdx.x & 31;
@@ -516,23 +587,110 @@ __global__ void bitunpack_kernel(const uint32_t* __restrict__ words, int k,
   }
 }
 
+// a warp's 32 vectors of codes, read from shared memory two codes at a
+// time: rows 2p and 2p + 1 of the tile
 template <typename C>
-__global__ void dict_gather_kernel(const int64_t* __restrict__ values,
-                                   int64_t r, const C* __restrict__ codes,
-                                   int64_t n, int64_t* __restrict__ out,
-                                   int staged) {
-  extern __shared__ int64_t s_vals[];
-  const int64_t* dict = values;
-  if (staged) {  // uniform across the block
-    for (int t = threadIdx.x; t < r; t += blockDim.x) s_vals[t] = values[t];
+struct alignas(2 * sizeof(C)) CodePair {
+  C a, b;
+};
+
+template <typename C, bool STAGED>
+__global__ void __launch_bounds__(DICT_THREADS)
+dict_gather_kernel(const int64_t* __restrict__ values, int64_t r,
+                   const C* __restrict__ codes, int64_t n, int head,
+                   int64_t* __restrict__ out) {
+  constexpr int V = 16 / (int)sizeof(C);  // codes a 16-byte load
+  constexpr int WARPS = DICT_THREADS / 32;
+  constexpr int TILE = 32 * V;            // rows a warp tile
+  extern __shared__ __align__(16) unsigned char dict_smem[];
+  uint4* s_codes = reinterpret_cast<uint4*>(dict_smem);
+  int64_t* s_dict = reinterpret_cast<int64_t*>(s_codes + 32 * WARPS);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t nvec = (n - head) / V;
+  const int64_t tiles = (nvec + 31) / 32;
+  const int64_t warps = (int64_t)gridDim.x * WARPS;
+  // warp tiles are dealt to the blocks first, so that a chunk with
+  // fewer tiles than the grid has warps still spreads over every SM
+  const int64_t first = (int64_t)warp * gridDim.x + blockIdx.x;
+  const uint4* body = reinterpret_cast<const uint4*>(codes + head);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  auto load = [&](int64_t t) {
+    const int64_t v = t * 32 + lane;
+    return v < nvec ? __ldg(body + v) : zero;
+  };
+  uint4 w = first < tiles ? load(first) : zero;  // in flight while staging
+  if (STAGED) {
+    // DICT_STAGE_LOADS entries a thread in flight at a time
+    for (int t0 = 0; t0 < r; t0 += DICT_STAGE_LOADS * DICT_THREADS) {
+      int64_t e[DICT_STAGE_LOADS];
+#pragma unroll
+      for (int k = 0; k < DICT_STAGE_LOADS; ++k) {
+        const int t = t0 + k * DICT_THREADS + threadIdx.x;
+        e[k] = t < r ? __ldg(values + t) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < DICT_STAGE_LOADS; ++k) {
+        const int t = t0 + k * DICT_THREADS + threadIdx.x;
+        if (t < r) s_dict[t] = e[k];
+      }
+    }
     __syncthreads();
-    dict = s_vals;
   }
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t c = (int64_t)codes[i];
-    out[i] = (c >= 0 && c < r) ? (staged ? dict[c] : __ldg(values + c)) : 0;
+  // code c's entry, 0 out of range (an int32 code below 0 widens to a
+  // uint64 above any r)
+  auto entry = [&](int64_t c) -> int64_t {
+    if ((uint64_t)c >= (uint64_t)r) return 0;
+    return STAGED ? s_dict[c] : __ldg(values + c);
+  };
+  // rows go out with streaming stores: nothing reads them back here
+  auto put2 = [](int64_t* o, int64_t a, int64_t b) {
+    __stcs(reinterpret_cast<longlong2*>(o), make_longlong2(a, b));
+  };
+  const int64_t tail = head + nvec * V;  // the tail's first row
+  const int64_t tid = (int64_t)blockIdx.x * DICT_THREADS + threadIdx.x;
+  if (tid < head) out[tid] = entry(codes[tid]);
+  if (tid < n - tail) out[tail + tid] = entry(codes[tail + tid]);
+  // a tile's rows are 16-byte aligned in out in pairs (2p, 2p + 1),
+  // unless `odd`: then in pairs (2p + 1, 2p + 2), and its first and last
+  // row go alone
+  const bool odd = ((((uintptr_t)out >> 3) + head) & 1) != 0;
+  uint4* buf = s_codes + 32 * warp;
+  const C* bc = reinterpret_cast<const C*>(buf);
+  const CodePair<C>* bp = reinterpret_cast<const CodePair<C>*>(buf);
+  for (int64_t t = first; t < tiles; t += warps) {
+    const uint4 next = t + warps < tiles ? load(t + warps) : zero;
+    buf[lane] = w;
+    __syncwarp();
+    int64_t* o = out + head + t * TILE;
+    const int rows = (int)min((int64_t)TILE, (nvec - t * 32) * V);
+    if (!odd && rows == TILE) {
+      int64_t e[V];
+#pragma unroll
+      for (int j = 0; j < V / 2; ++j) {
+        const CodePair<C> c = bp[32 * j + lane];
+        e[2 * j] = entry(c.a);
+        e[2 * j + 1] = entry(c.b);
+      }
+#pragma unroll
+      for (int j = 0; j < V / 2; ++j)
+        put2(o + 2 * (32 * j + lane), e[2 * j], e[2 * j + 1]);
+    } else if (!odd) {
+      for (int p = lane; p < rows / 2; p += 32) {
+        const CodePair<C> c = bp[p];
+        put2(o + 2 * p, entry(c.a), entry(c.b));
+      }
+    } else {
+      for (int p = lane; p < rows / 2; p += 32) {
+        if (p < rows / 2 - 1) {
+          put2(o + 2 * p + 1, entry(bc[2 * p + 1]), entry(bc[2 * p + 2]));
+        } else {
+          o[0] = entry(bc[0]);
+          o[rows - 1] = entry(bc[rows - 1]);
+        }
+      }
+    }
+    __syncwarp();
+    w = next;
   }
 }
 
@@ -553,13 +711,53 @@ void delta_launch(const void* z, int head, int64_t n, uint64_t first,
 }
 
 template <typename C>
-void dict_launch(const void* values, int64_t r, const void* codes,
-                 int64_t n, void* out, cudaStream_t stream) {
-  const int staged = r <= DICT_SMEM_MAX ? 1 : 0;
-  const size_t smem = staged ? (size_t)r * sizeof(int64_t) : 0;
-  dict_gather_kernel<C><<<grid_for(n, GATHER_THREADS, 132 * 16),
-                          GATHER_THREADS, smem, stream>>>(
-      (const int64_t*)values, r, (const C*)codes, n, (int64_t*)out, staged);
+cudaError_t dict_launch(const void* values, int64_t r, const void* codes,
+                        int64_t n, void* out, cudaStream_t stream) {
+  constexpr int V = 16 / (int)sizeof(C);
+  if (((uintptr_t)codes % sizeof(C)) != 0 || ((uintptr_t)out & 7) != 0 ||
+      ((uintptr_t)values & 7) != 0 || r < 0)
+    return cudaErrorInvalidValue;
+  // rows before the first 16-byte boundary at or after codes
+  const int64_t to_boundary =
+      (int64_t)(((16 - ((uintptr_t)codes & 15)) & 15) / sizeof(C));
+  const int head = (int)(n < to_boundary ? n : to_boundary);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int sms = sm_count(dev);
+  if (sms <= 0) return cudaErrorInvalidValue;
+  const bool staged = r <= DICT_STAGE_MAX;
+  const size_t smem = DICT_THREADS / 32 * 512 +
+                      (staged ? (size_t)r * sizeof(int64_t) : 0);
+  void (*kernel)(const int64_t*, int64_t, const C*, int64_t, int,
+                 int64_t*) = staged ? dict_gather_kernel<C, true>
+                                    : dict_gather_kernel<C, false>;
+  if (smem > DEFAULT_SMEM) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (!staged) {
+    // the entries come through L1: leave it as much of the SM's 256 KB
+    // as the codes' stage allows, once a device
+    static std::atomic<uint64_t> carved{0};
+    const uint64_t bit = 1ull << (dev & 63);
+    if (!(carved.load(std::memory_order_relaxed) & bit)) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxL1);
+      if (err != cudaSuccess) return err;
+      carved.fetch_or(bit, std::memory_order_relaxed);
+    }
+  }
+  // a block an SM, none without a warp tile of 32 vectors to walk (the
+  // head and the tail take fewer than V threads of block 0)
+  const int64_t tiles = ((n - head) / V + 31) / 32;
+  const int blocks = (int)(tiles < sms ? (tiles > 0 ? tiles : 1) : sms);
+  kernel<<<blocks, DICT_THREADS, smem, stream>>>(
+      (const int64_t*)values, r, (const C*)codes, n, head, (int64_t*)out);
+  return cudaSuccess;
 }
 
 // tiles of delta_unpack_launch for n rows, `head` rows past the 16-byte
@@ -665,19 +863,24 @@ extern "C" int bitunpack_launch(const void* words, int k, int vpw, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// code_kind: 1 = uint8, 2 = uint16, 4 = uint32, -4 = int32
+// code_kind: 1 = uint8, 2 = uint16, 4 = uint32, -4 = int32; codes
+// aligned to their width, values and out to 8 bytes. Returns
+// cudaErrorInvalidValue for arguments it does not take, else
+// cudaGetLastError().
 extern "C" int dict_gather_launch(const void* values, int64_t r,
                                   const void* codes, int code_kind,
                                   int64_t n, void* out, void* stream) {
   if (n > 0) {
     cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
     switch (code_kind) {
-      case 1: dict_launch<uint8_t>(values, r, codes, n, out, s); break;
-      case 2: dict_launch<uint16_t>(values, r, codes, n, out, s); break;
-      case 4: dict_launch<uint32_t>(values, r, codes, n, out, s); break;
-      case -4: dict_launch<int32_t>(values, r, codes, n, out, s); break;
+      case 1: err = dict_launch<uint8_t>(values, r, codes, n, out, s); break;
+      case 2: err = dict_launch<uint16_t>(values, r, codes, n, out, s); break;
+      case 4: err = dict_launch<uint32_t>(values, r, codes, n, out, s); break;
+      case -4: err = dict_launch<int32_t>(values, r, codes, n, out, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

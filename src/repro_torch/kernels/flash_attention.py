@@ -164,15 +164,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev) \
         if with_lse else None
     fn = _fn()
-    with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr() if with_lse else None,
-                 B, H, Hkv, Sq, Sk, D, int(q.dtype == torch.bfloat16),
-                 int(bool(causal)),
-                 int(window or 0), float(scale), float(softcap or 0.0),
-                 build.stream_handle(dev))
-    build.check(err, "flash_attention")
-    build.bump(PATH_LAUNCHES, path)
+    build.launch(fn, dev.index,
+                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  lse.data_ptr() if with_lse else None,
+                  B, H, Hkv, Sq, Sk, D, int(q.dtype == torch.bfloat16),
+                  int(bool(causal)),
+                  int(window or 0), float(scale), float(softcap or 0.0)),
+                 "flash_attention", PATH_LAUNCHES, path)
     return (out, lse) if with_lse else out
 
 
@@ -211,13 +209,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     fn = _bwd_fn(path)
-    with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                 B, H, Hkv, Sq, Sk, D, int(q.dtype == torch.bfloat16),
-                 int(bool(causal)), int(window or 0), float(scale),
-                 float(softcap or 0.0), build.stream_handle(dev))
-    build.check(err, "flash_attention backward")
-    build.bump(BWD_PATH_LAUNCHES, path)
+    build.launch(fn, dev.index,
+                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                  B, H, Hkv, Sq, Sk, D, int(q.dtype == torch.bfloat16),
+                  int(bool(causal)), int(window or 0), float(scale),
+                  float(softcap or 0.0)),
+                 "flash_attention backward", BWD_PATH_LAUNCHES, path)
     return dq, dk, dv

@@ -65,12 +65,10 @@ def merge_positions_cuda(sorted_keys: torch.Tensor, queries: torch.Tensor
              [_P, _I64, _P, _I64, _P, _P, _P, _P])
     # scratch: the first key of each sector of 4 (the kernel's pre-pass)
     heads = torch.empty(((r + 3) // 4,), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        err = fn(sorted_keys.data_ptr(), r, queries.data_ptr(), n,
-                 lo.data_ptr(), hi.data_ptr(), heads.data_ptr() or None,
-                 build.stream_handle(dev))
-    build.check(err, "merge_positions")
-    build.bump(globals(), "MERGE_LAUNCHES")
+    build.launch(fn, dev.index,
+                 (sorted_keys.data_ptr(), r, queries.data_ptr(), n,
+                  lo.data_ptr(), hi.data_ptr(), heads.data_ptr() or None),
+                 "merge_positions", globals(), "MERGE_LAUNCHES")
     return lo, hi
 
 
@@ -88,9 +86,7 @@ def gather_rows_cuda(values: torch.Tensor, idx: torch.Tensor
     n = idx.shape[0]
     out = torch.empty((n, d), dtype=torch.int64, device=dev)
     fn = _fn("gather_rows_launch", [_P, _I64, _I, _P, _I64, _P, _P])
-    with torch.cuda.device(dev):
-        err = fn(values.data_ptr(), r, d, idx.data_ptr(), n, out.data_ptr(),
-                 build.stream_handle(dev))
-    build.check(err, "gather_rows")
-    build.bump(globals(), "GATHER_LAUNCHES")
+    build.launch(fn, dev.index,
+                 (values.data_ptr(), r, d, idx.data_ptr(), n, out.data_ptr()),
+                 "gather_rows", globals(), "GATHER_LAUNCHES")
     return out

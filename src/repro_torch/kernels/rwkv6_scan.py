@@ -126,15 +126,13 @@ def rwkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               device=dev) for _ in range(2))
     dn = torch.empty((B * H * NC * K,), dtype=torch.float32, device=dev)
     fn = _bwd_fn()
-    with torch.cuda.device(dev):
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr(), do.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
-                 s_st.data_ptr(), g_st.data_ptr(), dn.data_ptr(), B, H, T, K,
-                 V, C, int(r.dtype == torch.bfloat16),
-                 build.stream_handle(dev))
-    build.check(err, "rwkv6 backward")
-    build.bump(globals(), "BWD_LAUNCHES")
+    build.launch(fn, dev.index,
+                 (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                  u.data_ptr(), do.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
+                  s_st.data_ptr(), g_st.data_ptr(), dn.data_ptr(), B, H, T, K,
+                  V, C, int(r.dtype == torch.bfloat16)),
+                 "rwkv6 backward", globals(), "BWD_LAUNCHES")
     return dr, dk, dv, dw, du_part.sum((0, 2))
 
 
@@ -155,10 +153,9 @@ def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_CHUNK}]")
     out = torch.empty((B, H, T, V), dtype=r.dtype, device=dev)
     fn = _fn()
-    with torch.cuda.device(dev):
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr(), out.data_ptr(), B, H, T, K, V, chunk,
-                 int(r.dtype == torch.bfloat16), build.stream_handle(dev))
-    build.check(err, "rwkv6")
-    build.bump(globals(), "LAUNCHES")
+    build.launch(fn, dev.index,
+                 (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                  u.data_ptr(), out.data_ptr(), B, H, T, K, V, chunk,
+                  int(r.dtype == torch.bfloat16)),
+                 "rwkv6", globals(), "LAUNCHES")
     return out

@@ -82,12 +82,10 @@ def segment_sum_first_cuda(values: torch.Tensor, keys: torch.Tensor,
     tiles = -(-n // TILE_ROWS)
     ids = torch.empty((4, tiles), dtype=torch.int32, device=dev)
     carry = torch.empty((2, tiles, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = fn(values.data_ptr(), keys.data_ptr(), seg_ids.data_ptr(), n,
-                 d, k, S, sums.data_ptr(), fidx.data_ptr(),
-                 fvals.data_ptr(), tiles, *(r.data_ptr() for r in ids),
-                 carry[0].data_ptr(), carry[1].data_ptr(),
-                 build.stream_handle(dev))
-    build.check(err, "segment_sum_first")
-    build.bump(globals(), "LAUNCHES")
+    build.launch(fn, dev.index,
+                 (values.data_ptr(), keys.data_ptr(), seg_ids.data_ptr(), n,
+                  d, k, S, sums.data_ptr(), fidx.data_ptr(),
+                  fvals.data_ptr(), tiles, *(r.data_ptr() for r in ids),
+                  carry[0].data_ptr(), carry[1].data_ptr()),
+                 "segment_sum_first", globals(), "LAUNCHES")
     return sums, fidx, fvals

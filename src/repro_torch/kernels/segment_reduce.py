@@ -68,11 +68,10 @@ def segment_reduce_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
     tiles = -(-n // TILE_ROWS)
     ids = torch.empty((2, tiles), dtype=torch.int32, device=dev)
     carry = torch.empty((2, tiles, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = fn(values.data_ptr(), seg_ids.data_ptr(), n, d, S,
-                 out.data_ptr(), tiles, ids[0].data_ptr(),
-                 ids[1].data_ptr(), carry[0].data_ptr(),
-                 carry[1].data_ptr(), build.stream_handle(dev))
-    build.check(err, "segment_reduce")
-    build.bump(globals(), "LAUNCHES")
+    build.launch(fn, dev.index,
+                 (values.data_ptr(), seg_ids.data_ptr(), n, d, S,
+                  out.data_ptr(), tiles, ids[0].data_ptr(),
+                  ids[1].data_ptr(), carry[0].data_ptr(),
+                  carry[1].data_ptr()),
+                 "segment_reduce", globals(), "LAUNCHES")
     return out

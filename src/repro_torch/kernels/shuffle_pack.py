@@ -79,12 +79,11 @@ def _pack(what: str, counter: str, values: torch.Tensor, idx: torch.Tensor,
         return out
     fn = _fn("pack_rows_launch",
              [_P, _I64, _I, _P, _I, _P, _I, _I64, _I64, _P, _P])
-    with torch.cuda.device(dev):
-        err = fn(values.data_ptr(), r, d, idx.data_ptr(),
-                 _IDX_BYTES[idx.dtype], ok.data_ptr(), _OK_BYTES[ok.dtype],
-                 m, repl, out.data_ptr(), build.stream_handle(dev))
-    build.check(err, what)
-    build.bump(globals(), counter)
+    build.launch(fn, dev.index,
+                 (values.data_ptr(), r, d, idx.data_ptr(),
+                  _IDX_BYTES[idx.dtype], ok.data_ptr(), _OK_BYTES[ok.dtype],
+                  m, repl, out.data_ptr()),
+                 what, globals(), counter)
     return out
 
 
@@ -116,11 +115,8 @@ def unpack_cols_cuda(buf: torch.Tensor) -> torch.Tensor:
     if d > 65535 * 8:
         raise ValueError(f"unpack_cols: {d} lanes exceed the grid")
     fn = _fn("unpack_cols_launch", [_P, _I64, _I, _P, _P])
-    with torch.cuda.device(dev):
-        err = fn(buf.data_ptr(), m, d, out.data_ptr(),
-                 build.stream_handle(dev))
-    build.check(err, "unpack_cols")
-    build.bump(globals(), "UNPACK_LAUNCHES")
+    build.launch(fn, dev.index, (buf.data_ptr(), m, d, out.data_ptr()),
+                 "unpack_cols", globals(), "UNPACK_LAUNCHES")
     return out
 
 
@@ -139,9 +135,7 @@ def member_mask_cuda(keys: torch.Tensor, heavy: torch.Tensor
     if n == 0:
         return out
     fn = _fn("member_mask_launch", [_P, _I64, _P, _I64, _P, _P])
-    with torch.cuda.device(dev):
-        err = fn(keys.data_ptr(), n, heavy.data_ptr(), m, out.data_ptr(),
-                 build.stream_handle(dev))
-    build.check(err, "member_mask")
-    build.bump(globals(), "MEMBER_LAUNCHES")
+    build.launch(fn, dev.index,
+                 (keys.data_ptr(), n, heavy.data_ptr(), m, out.data_ptr()),
+                 "member_mask", globals(), "MEMBER_LAUNCHES")
     return out

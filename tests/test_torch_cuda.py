@@ -433,6 +433,112 @@ def test_decode_calls_without_rows_launch_nothing(cuda):
 
 
 @pytest.mark.cuda
+def test_dict_gather_staging_edges_bit_exact_repeatable_counted(cuda):
+    """dict_gather on both sides of its staging limit
+    (``dict_card_cases``: r = 4,096, 4,097, the largest staged r and one
+    more, and 65,536, each code kind, codes 0-15 bytes off a 16-byte
+    boundary and ``out`` on or 8 bytes off one, random bytes around
+    both, codes out of range; a staged and an unstaged chunk with more
+    16-byte vectors of codes than the grid has threads)."""
+    for name, args in chip_smoke.dict_card_cases(np.random.RandomState(15),
+                                                 cuda):
+        launched_once_twice_alike(name, args)
+
+
+@pytest.mark.cuda
+def test_dict_gather_wrapper_refuses_what_it_refused(cuda):
+    """The folded check and output pass raise the messages of the two
+    passes it replaced: a CPU tensor, a mis-typed one, a strided one, and
+    an ``out`` of the wrong type, length or device."""
+    v = torch.arange(4, dtype=torch.int64, device=cuda)
+    c = torch.zeros(4, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match=r"dict_gather_cuda: tensors must "
+                       r"share one CUDA device; got \['cuda:0', 'cpu'\]"):
+        TD.dict_gather_cuda(v, c.cpu())
+    with pytest.raises(TypeError, match=r"dict_gather_cuda: want "
+                       r"contiguous 1-d tensors of \['torch.int64'\]; got "
+                       r"torch.float32 \(4,\)"):
+        TD.dict_gather_cuda(v.float(), c)
+    with pytest.raises(TypeError, match="want contiguous 1-d tensors"):
+        TD.dict_gather_cuda(v, c.to(torch.int16))
+    with pytest.raises(TypeError, match="want contiguous 1-d tensors"):
+        TD.dict_gather_cuda(v, torch.zeros(8, dtype=torch.uint8,
+                                           device=cuda)[::2])
+    for out in (torch.empty(4, dtype=torch.int32, device=cuda),
+                torch.empty(5, dtype=torch.int64, device=cuda),
+                torch.empty(4, dtype=torch.int64)):
+        with pytest.raises(TypeError, match=r"dict_gather_cuda: out must "
+                           r"be a contiguous \(4,\) int64 tensor on "
+                           r"cuda:0"):
+            TD.dict_gather_cuda(v, c, out=out)
+
+
+def side_stream_cases(name, dev):
+    """(the kernel's call, a check of its outputs) for one wrapper at a
+    small shape: bit-exact against the plain version, or within the LM
+    kernels' bounds of it."""
+    if name in DECODE:
+        args = decode_sweep_args(name, 5, dev)
+    elif name in KERNELS:
+        args = tuple(a.to(dev) if torch.is_tensor(a) else a
+                     for a in sweep_args(name, 5))
+    elif name in SHUFFLE:
+        args = shuffle_sweep_args(name, 5, dev)
+    elif name == "segment_reduce":
+        args = chip_smoke.reduce_edge_cases(dev, large=False)[0][1]
+    if name in ("flash_attention", "rwkv6"):
+        if name == "flash_attention":
+            q, k, v, kw = chip_smoke.attention_edge_cases(dev, False)[0]
+            args = (q, k, v)
+        else:
+            *args, chunk = chip_smoke.rwkv6_edge_cases(dev, False)[0]
+            args, kw = tuple(args), dict(chunk=chunk)
+        fns = chip_smoke.lm_kernel_fns(name, args, kw)
+        want = fns[1]()
+        return fns[0], lambda got: chip_smoke.within(got[0], want, fns[7])
+    if name in ("flash_attention_bwd", "rwkv6_bwd"):
+        if name == "flash_attention_bwd":
+            args, kw = _attention_bwd_args(BWD_ATTN_SHAPES[0],
+                                           torch.float32, dev, 3)
+        else:
+            args, kw = _rwkv_bwd_args(1, 2, 70, 16, 16, torch.float32, dev,
+                                      3), dict(chunk=64)
+        fns = chip_smoke.lm_bwd_fns(name, args, kw)
+        want = fns[1]()
+        return fns[0], lambda got: [chip_smoke.within(x, y, t) for x, y, t
+                                    in zip(got, want, fns[7])]
+    kern, plain_fn, _, _ = chip_smoke.kernel_fns(name, args)
+    want = to_np(plain_fn())
+    return kern, lambda got: assert_bits_equal(to_np(got), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DECODE + KERNELS + SHUFFLE + [
+    "segment_reduce", "flash_attention", "flash_attention_bwd", "rwkv6",
+    "rwkv6_bwd"])
+def test_wrappers_launch_on_the_callers_stream(cuda, name):
+    """Each ctypes wrapper launched under ``torch.cuda.stream(s)`` while
+    the default stream spins: its outputs, read on ``s`` after
+    ``s.synchronize()`` alone, agree with the plain version, and the
+    default stream is still busy then, so a launch there could not have
+    run. Guards the raw stream handle that ``build.launch`` reads."""
+    kern, check = side_stream_cases(name, cuda)
+    kern()                                    # built and loaded
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    torch.cuda._sleep(400_000_000)            # about 0.2 s on the default
+    with torch.cuda.stream(s):
+        got = kern()
+        got = got if isinstance(got, tuple) else (got,)
+        s.synchronize()
+        busy = not torch.cuda.default_stream(cuda).query()
+        host = tuple(g.cpu() for g in got)    # copied on s
+    assert busy, "the default stream finished first: no evidence"
+    torch.cuda.synchronize()
+    check(tuple(h.to(cuda) for h in host))
+
+
+@pytest.mark.cuda
 def test_stored_path_on_card_equals_port_on_cpu(cuda, tmp_path):
     """The n2n query served from an auto-encoded dataset: on the card,
     decoded by the kernels, one-shot and streamed, equals the port on
