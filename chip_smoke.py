@@ -43,7 +43,12 @@ wrong or if there is no CUDA device. Phases:
                4,096, 4,097, the largest staged r and one more, 65,536;
                codes 0-15 bytes and ``out`` 8 bytes off a 16-byte
                boundary; more warp tiles than the grid has warps), two
-               launches bit-identical;
+               launches bit-identical; then segment_sum_first,
+               merge_positions and gather_rows batched, B = 8 calls in
+               one launch (the batched family execution's), with every
+               combination of shared and batched operands: each slice
+               bit-exact against its plain version and against a launch
+               of its own, two launches bit-identical;
   A quickstart examples/quickstart.py's query with use_kernel=True
                matches the port's interpreter;
   B n2n TPC-H level 2, domain elimination on, at the SF10 order count:
@@ -137,9 +142,16 @@ wrong or if there is no CUDA device. Phases:
   M serving    over D's stored dataset and data and F's data and mesh,
                with every launch counter zeroed first: B's query with one
                liftable constant (lineitems of qty >= c), 8 bindings in
-               one QueryService.execute_many, each bit-equal to its own
-               execute, 0 warm plan rebuilds, the batch's time beside 8
-               executes; ServingRuntime.submit_many coalescing them, and
+               one QueryService.execute_many, one pass of the program
+               body over a batch axis: each output bit-equal to its own
+               execute, 0 warm plan rebuilds, each join kernel launched
+               as often as in one execute (segment_sum_first batched),
+               the batch's time and peak memory beside 8 executes', the
+               batched launches at their captured shapes against a
+               launch a slice (merge_positions and gather_rows, which
+               this family launches unbatched, with their captured
+               call's probe side permuted a row at a time);
+               ServingRuntime.submit_many coalescing them, and
                a fresh runtime's warm_replay (all-invalid bags on the
                card) before a request with 0 rebuilds; explain_analyze
                with and without the kernels (equal trees, bit-equal
@@ -1834,6 +1846,152 @@ def pack_tile_cases(rng, dev) -> list:
 # phases
 # ---------------------------------------------------------------------------
 
+BATCH = 8   # batch rows of phase 2's batched launches (phase M's family)
+
+
+def batched_cases(rng, dev, B: int = BATCH) -> list:
+    """(kernel name, operands, batched) for the three join kernels'
+    batched launches: each operand either shared by the B calls (one
+    slice, batch stride 0) or batched (B slices, each its own draw), in
+    every combination with at least one batched, at shapes around the
+    kernels' tiles: segment_sum_first with ids out of range, empty
+    segments and d = 5 (two column groups), one row over a 2048-row
+    tile; merge_positions with r odd (the heads' rows padded to 16
+    bytes), duplicate and INT64_MAX keys, r at 16,384 fences of 16 keys
+    plus one; gather_rows with ids -1 and r, d odd and even (one and two
+    lanes a load) and values 8 bytes off a 16-byte boundary."""
+    import itertools
+    T = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
+
+    def draws(make, flags):
+        """Each operand: one draw (shared) or B stacked (batched)."""
+        one = make()
+        many = [make() for _ in range(B)]
+        return tuple(np.stack([m[i] for m in many]) if f else one[i]
+                     for i, f in enumerate(flags))
+
+    def combos(k):
+        return [f for f in itertools.product((False, True), repeat=k)
+                if any(f)]
+
+    cases = []
+    for n, S, d, k, lo, hi in [(1, 1, 1, 1, 0, 1), (40, 50, 2, 3, 0, 30),
+                               (33, 7, 3, 2, -2, 9), (2049, 700, 5, 2, -1, 600),
+                               (70000, 70000, 1, 3, 0, 30000)]:
+        def make():
+            seg = np.sort(rng.randint(lo, hi + 1, n)).astype(np.int32)
+            return (rng.randint(0, 100, (n, d)).astype(np.float32),
+                    rng.randint(-2 ** 62, 2 ** 62, (n, k)).astype(np.int64),
+                    seg)
+        for flags in combos(3):
+            v, kk, s = draws(make, flags)
+            cases.append(("segment_sum_first",
+                          (T(v, torch.float32), T(kk, torch.int64),
+                           T(s, torch.int32), S), flags))
+    for r, n, span in [(1, 5, 20), (7, 60, 20), (300, 50, 3),
+                       (5000, 70000, 20), (16384 * 16 + 1, 50000, 10 ** 6)]:
+        def make():
+            sk = np.sort(rng.randint(-span, span, r)).astype(np.int64)
+            sk[r // 2:] = np.maximum(sk[r // 2:], 3)
+            if r > 2:
+                sk[-2:] = I64_MAX
+            q = rng.randint(-span - 5, span + 5, n).astype(np.int64)
+            q[: max(n // 4, 1)] = I64_MAX
+            return sk, q
+        for flags in combos(2):
+            sk, q = draws(make, flags)
+            cases.append(("merge_positions",
+                          (T(sk, torch.int64), T(q, torch.int64)), flags))
+    for r, n, d, skip in [(1, 9, 1, 0), (30, 50, 4, 0), (17, 1, 2, 0),
+                          (1500, 3077, 3, 0), (4000, 9000, 2, 0),
+                          (4000, 9000, 6, 1)]:
+        def make():
+            idx = rng.randint(-3, r + 3, n).astype(np.int64)
+            idx[0], idx[-1] = -1, r
+            return (rng.randint(-2 ** 62, 2 ** 62, (r, d)).astype(np.int64),
+                    idx)
+        for flags in combos(2):
+            vals, idx = draws(make, flags)
+            cases.append(("gather_rows",
+                          (view_at(vals, torch.int64, skip, dev),
+                           T(idx, torch.int64)), flags))
+    return cases
+
+
+def batched_fns(name: str, args: tuple, batched: tuple, B: int):
+    """(the batched launch, slice b's plain version, slice b's launch of
+    its own) of one kernel, over operands ``args`` of which those marked
+    ``batched`` carry a leading axis of B."""
+    from repro_torch.kernels import gather_join as G
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import segment_fused as SF
+    tensors = [a for a in args if torch.is_tensor(a)]
+    rest = tuple(a for a in args if not torch.is_tensor(a))
+
+    def at(b):
+        return tuple(t[b] if f else t for t, f in zip(tensors, batched)) \
+            + rest
+
+    if name == "segment_sum_first":
+        return (lambda: SF.segment_sum_first_cuda(*args, B),
+                lambda b: R.segment_sum_first_ref(*at(b)),
+                lambda b: SF.segment_sum_first_cuda(*at(b)))
+    if name == "merge_positions":
+        return (lambda: G.merge_positions_cuda(*args, B),
+                lambda b: R.merge_positions_ref(*at(b)),
+                lambda b: G.merge_positions_cuda(*at(b)))
+    return (lambda: G.gather_rows_cuda(*args, B),
+            lambda b: R.gather_rows_ref(*at(b)),
+            lambda b: G.gather_rows_cuda(at(b)[0].contiguous(), at(b)[1]))
+
+
+def bits_equal(a, b) -> bool:
+    """Every output bit for bit (floats by their bits: -0.0 and NaN
+    payloads count)."""
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    def bits(t):
+        return t.view({4: torch.int32, 8: torch.int64}[t.element_size()]) \
+            if t.is_floating_point() else t
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
+def check_batched(name: str, args: tuple, batched: tuple,
+                  B: int = BATCH) -> None:
+    """One batched launch: each slice bit-exact against its plain version
+    and against a launch of its own, and a second batched launch
+    bit-identical to the first."""
+    launch, plain, single = batched_fns(name, args, batched, B)
+    got = launch()
+    got = tuple(g.clone() for g in (got if isinstance(got, tuple)
+                                    else (got,)))
+    again = launch()
+    torch.cuda.synchronize()
+    shapes = [tuple(a.shape) if torch.is_tensor(a) else a for a in args]
+    assert bits_equal(got, again), (name, shapes, batched, "again")
+    for b in range(B):
+        row = tuple(g[b] for g in got)
+        assert bits_equal(row, plain(b)), (name, shapes, batched, b)
+        assert bits_equal(row, single(b)), (name, shapes, batched, b)
+
+
+def phase_batched_kernels(dev) -> None:
+    """Phase 2's batched launches (the batched family execution's): every
+    case of ``batched_cases`` through ``check_batched``."""
+    t0 = time.perf_counter()
+    cases = batched_cases(np.random.RandomState(29), dev)
+    for name, args, batched in cases:
+        check_batched(name, args, batched)
+    log(f"[2 kernels] {len(cases)} batched launches at B = {BATCH} "
+        f"(segment_sum_first, merge_positions, gather_rows; every "
+        f"combination of shared and batched operands): each slice "
+        f"bit-exact against its plain version and against a launch of its "
+        f"own, two launches bit-identical, in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -2939,10 +3097,159 @@ def explain_report(tag: str, res, head: int = 12) -> None:
         log(f"[{tag}]   {line[:200]}")
 
 
+@contextlib.contextmanager
+def join_launches_uncounted():
+    """On exit, the three join kernels' launch counters (and their
+    batched counts) as they were on entry: the launches made to capture,
+    compare and time the kernels add nothing to the phase's counts."""
+    from repro_torch.kernels import gather_join as G
+    from repro_torch.kernels import segment_fused as SF
+    saved = (SF.LAUNCHES, G.MERGE_LAUNCHES, G.GATHER_LAUNCHES,
+             SF.BATCHED_LAUNCHES, G.MERGE_BATCHED_LAUNCHES,
+             G.GATHER_BATCHED_LAUNCHES)
+    try:
+        yield
+    finally:
+        (SF.LAUNCHES, G.MERGE_LAUNCHES, G.GATHER_LAUNCHES,
+         SF.BATCHED_LAUNCHES, G.MERGE_BATCHED_LAUNCHES,
+         G.GATHER_BATCHED_LAUNCHES) = saved
+
+
+class CaptureCudaCalls:
+    """While active, keeps the arguments of the largest call (by element
+    count) of each of the three join kernels' CUDA wrappers, batched
+    (given a batch size: kept as ``segment_sum_first_batched`` ...) and
+    not, as the vmap rules and the direct calls hand them: plain
+    tensors, never the batched tensors of ``torch.func.vmap``."""
+
+    # (module, wrapper, its arguments of one call)
+    NAMES = (("segment_fused", "segment_sum_first_cuda", 4),
+             ("gather_join", "merge_positions_cuda", 2),
+             ("gather_join", "gather_rows_cuda", 2))
+
+    def __enter__(self):
+        import importlib
+        self.args, self._size, self._orig = {}, {}, []
+        for mod, fn, one in self.NAMES:
+            m = importlib.import_module(f"repro_torch.kernels.{mod}")
+            self._orig.append((m, fn, getattr(m, fn)))
+            setattr(m, fn, self._wrap(fn.replace("_cuda", ""), one,
+                                      getattr(m, fn)))
+        return self
+
+    def _wrap(self, name, one, fn):
+        def recorder(*args):
+            key = name if len(args) == one else f"{name}_batched"
+            size = sum(a.numel() for a in args if torch.is_tensor(a))
+            if size > self._size.get(key, -1):
+                self._size[key], self.args[key] = size, args
+            return fn(*args)
+        return recorder
+
+    def __exit__(self, *exc):
+        for m, fn, f in self._orig:
+            setattr(m, fn, f)
+
+
+def m_batched_launches(captured: dict, tag: str, B: int = BATCH) -> None:
+    """Each join kernel's batched launch at phase M's captured shapes,
+    slice by slice against its plain version (bit-exact; segment sums
+    past 2^24 may instead be held by ``sums_within_f32_bound``) and
+    bit-exact against B launches of its own, one a slice, then timed (CUDA events, and the device time by the
+    profiler) with the byte bound of the whole batch. A kernel that M's
+    family launches with no batched operand (its operands do not depend
+    on the parameter) is held at its captured call, shared operand as
+    captured and the other one permuted a row at a time."""
+    gen = None
+    for name, batched_of in (("segment_sum_first", None),
+                             ("merge_positions", 1), ("gather_rows", 1)):
+        if f"{name}_batched" in captured:
+            args = captured[f"{name}_batched"]
+            flags = tuple(a.dim() == d + 1 for a, d in
+                          zip([a for a in args[:-1] if torch.is_tensor(a)],
+                              (2, 2, 1) if name == "segment_sum_first"
+                              else (1, 1) if name == "merge_positions"
+                              else (2, 1)))
+            args = args[:-1]                          # drop B
+            how = "its batched call in the warm batch"
+        elif name in captured:
+            one = captured[name]
+            x = one[batched_of]
+            gen = gen or torch.Generator(device=x.device).manual_seed(29)
+            rows = [x[torch.randperm(x.shape[0], generator=gen,
+                                     device=x.device)] for _ in range(B)]
+            args = tuple(torch.stack(rows) if i == batched_of else a
+                         for i, a in enumerate(one))
+            flags = tuple(i == batched_of for i in range(len(one))
+                          if torch.is_tensor(one[i]))
+            del rows
+            how = (f"no batched call in the warm batch (its operands carry "
+                   f"no parameter); its captured call, operand "
+                   f"{batched_of} permuted a row at a time")
+        else:
+            continue
+        launch, plain, single = batched_fns(name, args, flags, B)
+
+        def at(b):
+            return tuple(a[b] if f else a for a, f in zip(
+                [a for a in args if torch.is_tensor(a)], flags)) + tuple(
+                a for a in args if not torch.is_tensor(a))
+
+        got = launch()
+        got = got if isinstance(got, tuple) else (got,)
+        within = 0
+        for b in range(B):
+            row = tuple(g[b] for g in got)
+            assert bits_equal(row, single(b)), (name, b)
+            want = plain(b)
+            torch.cuda.synchronize()
+            if not bits_equal(row, want):
+                assert name == "segment_sum_first", \
+                    f"{name}: batched launch disagrees with the plain " \
+                    f"version on slice {b} at {tag}'s shapes"
+                sums_within_f32_bound(row, want, at(b))
+                within += 1
+            del row, want
+        del got
+        torch.cuda.synchronize()
+        held = "bit-exact against its plain version" + (
+            f" ({within} of {B} slices: sums within the f32 bound of it, "
+            f"first rows, keys and per-segment counts equal)"
+            if within else "")
+
+        def slices():
+            for b in range(B):
+                single(b)
+
+        nbytes = 0
+        for b in range(B):
+            nbytes += kernel_fns(name, at(b))[3]
+        if name == "merge_positions" and not flags[0]:
+            nbytes -= (B - 1) * 8 * args[0].shape[0]   # shared keys: once
+        (dev_b, dev_s), sessions = device_ms([launch, slices], [10, 10],
+                                             tries=PROFILE_TRIES + 1)
+        ms_b, ms_s = time_ms(launch), time_ms(slices)
+        shapes = [tuple(a.shape) if torch.is_tensor(a) else a
+                  for a in args]
+        log(f"  [{tag}] {name} batched, B = {B}, at {shapes} ({how}; "
+            f"batched operands {flags}): each slice {held} and bit-exact "
+            f"against its own launch; one batched launch {ms_b:.4f} ms "
+            f"({_ms(dev_b)} on the device) against {B} launches "
+            f"{ms_s:.4f} ms ({_ms(dev_s)} on the device, profile session "
+            f"{sessions}); bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+            f"by bytes for the batch")
+        del args
+        torch.cuda.empty_cache()
+
+
 def m_execute_many(env_np: dict, types: dict, catalog, dev):
     """M execute_many: the family's 8 bindings in one ``execute_many``
-    over D's data in memory, each output bit-equal to its own
-    ``execute``; then ``ServingRuntime.submit_many`` coalesces them (one
+    over D's data in memory, one pass of the program body over a batch
+    axis: each output bit-equal to its own ``execute``, each join
+    kernel launched as often as in one ``execute`` (segment_sum_first
+    batched), the peak memory of the batch and of 8 executes; the
+    batched launches at their captured shapes against a launch a slice
+    (``m_batched_launches``); then ``ServingRuntime.submit_many`` coalesces them (one
     batch through ``execute_many``), and a fresh runtime's
     ``warm_replay`` builds its all-invalid bags on the card, after which
     the next request rebuilds no plan. Returns (env, answers)."""
@@ -2951,6 +3258,7 @@ def m_execute_many(env_np: dict, types: dict, catalog, dev):
     from repro_torch.columnar.table import env_from_numpy
     from repro_torch.core import codegen as CG
     from repro_torch.core.plans import ExecSettings
+    from repro_torch.kernels import ops as kops
     from repro_torch.serve import QueryRequest, QueryService, ServingRuntime
     tag = "M execute_many"
     env = env_from_numpy(env_np, dev)
@@ -2960,21 +3268,39 @@ def m_execute_many(env_np: dict, types: dict, catalog, dev):
         return QueryService(types, catalog=catalog,
                             settings=ExecSettings(use_kernel=True))
 
+    def launched(before: dict, counts: dict) -> dict:
+        return {k: counts[k] - before[k] for k in JOIN_KERNELS}
+
     svc = service()
     t0 = time.perf_counter()
     outs = svc.execute_many(progs, env)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     traces = CG.TRACE_STATS.get("traces", 0)
+    before, before_b = kops.launch_counts(), kops.batched_launch_counts()
+    del outs
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     outs = svc.execute_many(progs, env)
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3
+    batch_peak = torch.cuda.max_memory_allocated() - base
     rebuilds = CG.TRACE_STATS.get("traces", 0) - traces
+    in_batch = launched(before, kops.launch_counts())
+    of_them = launched(before_b, kops.batched_launch_counts())
+    before = kops.launch_counts()
+    one = svc.execute(progs[0], env)                # warms the executable
+    torch.cuda.synchronize()
+    in_one = launched(before, kops.launch_counts())
+    del one
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     singles = [svc.execute(p, env) for p in progs]
     torch.cuda.synchronize()
     single_ms = (time.perf_counter() - t0) * 1e3
+    single_peak = torch.cuda.max_memory_allocated() - base
     stats = dict(svc.stats)
     for q, out, single in zip(M_MIN_QTY, outs, singles):
         outputs_bit_equal(out, single, f"{tag} min_qty {q}")
@@ -2983,14 +3309,50 @@ def m_execute_many(env_np: dict, types: dict, catalog, dev):
         log(f"[{tag}] min_qty {q}: {M_OPARTS} {rows} groups equal to the "
             f"numpy group-by")
     log(f"[{tag}] {len(progs)} bindings (qty >= {list(M_MIN_QTY)}): cold "
-        f"{cold_s:.3f} s; warm batch {batch_ms:.1f} ms against "
-        f"{single_ms:.1f} ms for {len(progs)} separate execute calls "
-        f"(information only: the batch runs the warm executable once a "
-        f"binding); plan rebuilds in the warm batch {rebuilds}; stats "
-        f"{stats}; every output bit-equal to its own execute")
+        f"{cold_s:.3f} s; warm batch {batch_ms:.1f} ms (one pass of the "
+        f"program body over a batch axis of {len(progs)}; peak "
+        f"{batch_peak / 2 ** 30:.2f} GiB above the memory held before it) "
+        f"against {single_ms:.1f} ms for {len(progs)} separate execute "
+        f"calls (peak {single_peak / 2 ** 30:.2f} GiB); plan rebuilds in "
+        f"the warm batch {rebuilds}; stats {stats}; every output bit-equal "
+        f"to its own execute")
+    log(f"[{tag}] launches in the warm batch {in_batch} (of them batched, "
+        f"one launch for all {len(progs)} bindings: {of_them}), equal to "
+        f"one execute's {in_one}")
     assert rebuilds == 0 and stats["batch_calls"] == 2, (rebuilds, stats)
     assert stats["misses"] == 1, stats
+    assert in_batch == in_one and all(v > 0 for v in in_batch.values()), \
+        (in_batch, in_one)
+    assert of_them["segment_sum_first"] == in_batch["segment_sum_first"], \
+        of_them
     del singles
+    entry = next(iter(svc._cache.values()))
+    learned = entry.batch_cap
+    entry.batch_cap = len(progs) // 2
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    halves = svc.execute_many(progs, env)
+    torch.cuda.synchronize()
+    half_peak = torch.cuda.max_memory_allocated() - base
+    for q, out, half in zip(M_MIN_QTY, outs, halves):
+        outputs_bit_equal(half, out, f"{tag} in chunks, min_qty {q}")
+    assert sorted(entry.batch_fns) == [len(progs) // 2, len(progs)], \
+        sorted(entry.batch_fns)
+    del halves
+    log(f"[{tag}] the same batch with batch_cap={len(progs) // 2}: 2 passes "
+        f"of {len(progs) // 2}, peak {half_peak / 2 ** 30:.2f} GiB (the "
+        f"first pass's outputs held through the second) against "
+        f"{batch_peak / 2 ** 30:.2f} for one pass of {len(progs)}; every "
+        f"output bit-equal to the one pass's; the family's batch_cap "
+        f"learned from the pass of {len(progs)}: {learned} bindings a pass "
+        f"(90% of the memory free to it over the peak a binding), "
+        f"{entry.batch_cap} after the passes of {len(progs) // 2}")
+    assert learned >= len(progs), learned
+    with join_launches_uncounted():
+        with CaptureCudaCalls() as cap:
+            svc.execute_many(progs, env)
+        m_batched_launches(cap.args, tag)
+    del cap
     tmp = tempfile.mkdtemp(prefix="chip_smoke_manifest_")
     try:
         man = os.path.join(tmp, "plans.json")
@@ -6167,6 +6529,7 @@ def main() -> int:
         "torch.backends.cudnn.allow_tf32 = False")
     phase_build()
     phase_kernels(dev)
+    phase_batched_kernels(dev)
     phase_lm_kernels(dev)
     phase_quickstart(dev)
     lap("0-A")

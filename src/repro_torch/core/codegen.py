@@ -13,6 +13,9 @@ of ``repro.core.codegen``).
   ``N.Param`` bindings arrive as runtime arguments, and ``TRACE_STATS``
   counts one "trace" per new input signature, as ``jax.jit``'s cache
   would, so a warm call with new parameter values counts nothing.
+* ``vmap_program``      — that executable's body run once over a batch
+  axis of stacked parameter bindings (``torch.func.vmap``), the
+  reference's ``jax.jit(jax.vmap(raw_fn, in_axes=(None, 0)))``.
 * ``columnar_shred_inputs`` — value-shreds nested Python rows into
   FlatBags (the columnar twin of interpreter.shred_value).
 * ``unshred_parts``     — the cogroup step: clusters every dictionary by
@@ -282,6 +285,7 @@ def run_flat_program(cp: CompiledProgram, env: Dict[str, FlatBag],
 # ---------------------------------------------------------------------------
 
 from repro_torch.obs.metrics import REGISTRY as _METRICS  # noqa: E402
+from repro_torch.obs.metrics import host_recording_as  # noqa: E402
 from repro_torch.obs.trace import span as _span  # noqa: E402
 
 TRACE_STATS = _METRICS.view("trace")
@@ -409,6 +413,52 @@ def jit_program(cp: CompiledProgram,
 
     defaults = collect_params(cp.graph) if cp.graph is not None else {}
     return ProgramExecutable(cp, outputs, defaults, cfn, fn)
+
+
+def vmap_program(exe: ProgramExecutable) -> Callable:
+    """The program body run ONCE over a batch axis of its parameters:
+    the reference's ``jax.jit(jax.vmap(exe.raw_fn, in_axes=(None, 0)))``.
+    The callable takes an environment of FlatBags, shared by the batch,
+    and stacked bindings ({name: tensor with a leading axis of B}), and
+    returns the output bags with that leading axis on every column and
+    on ``valid``.
+
+    ``torch.func.vmap`` maps ``exe.raw_fn``, the bags crossing its
+    boundary as plain (data, valid) pairs, inside
+    ``kernels.ops.batched_pass()``: a kernel call with a batched operand
+    launches the batched kernel once for the whole batch. Work that no
+    parameter reaches runs once, unbatched. As the reference's jitted
+    vmap, the callable counts a trace (``TRACE_STATS``, a ``compile``
+    span) for each input signature it has not seen, and a warm call
+    records no host telemetry from inside the body (``SORT_STATS``,
+    ``EVAL_STATS``, spans), as a warm jitted call runs no Python."""
+    from repro_torch.kernels import ops as kops
+
+    def body(env, params):
+        return {o: (b.data, b.valid)
+                for o, b in exe.raw_fn(env, params).items()}
+
+    vbody = torch.func.vmap(body, in_dims=(None, 0))
+    seen: set = set()
+
+    def run(env, stacked):
+        with kops.batched_pass():
+            return vbody(env, stacked)
+
+    def call(env, stacked):
+        sig = _signature(env, stacked)
+        if sig in seen:
+            with host_recording_as(False):
+                out = run(env, stacked)
+        else:
+            TRACE_STATS["traces"] = TRACE_STATS.get("traces", 0) + 1
+            with _span("compile", kind="xla_trace", path="local_batched",
+                       plans=len(exe.cp.plans)):
+                out = run(env, stacked)
+            seen.add(sig)
+        return {o: FlatBag(data, valid) for o, (data, valid) in out.items()}
+
+    return call
 
 
 def compile_program_distributed(

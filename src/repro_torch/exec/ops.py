@@ -167,9 +167,9 @@ def _presorted_seg_ids(bag: FlatBag, cols: Tuple[str, ...]) -> torch.Tensor:
     # to slot c and read back at each row's running count c. PyTorch's
     # cummax kernel costs more on the GPU than the rest of sum_by.
     count = torch.cumsum(bag.valid, 0)
-    nth_valid = torch.full((cap + 1,), -1, dtype=torch.int64, device=dev)
-    nth_valid.scatter_(0, torch.where(bag.valid, count, 0),
-                       torch.where(bag.valid, idx, -1))
+    nth_valid = torch.full((cap + 1,), -1, dtype=torch.int64,
+                           device=dev).scatter(
+        0, torch.where(bag.valid, count, 0), torch.where(bag.valid, idx, -1))
     last_valid = nth_valid[count]
     prev_valid = torch.cat([torch.full((1,), -1, dtype=last_valid.dtype,
                                        device=dev), last_valid[:-1]])
@@ -210,7 +210,7 @@ def _segments(bag: FlatBag, key_cols: Sequence[str]
 def _segment_sum(vals: torch.Tensor, seg_id: torch.Tensor,
                  num_segments: int) -> torch.Tensor:
     out = torch.zeros(num_segments, dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, seg_id.to(torch.int64), vals)
+    return out.index_add(0, seg_id.to(torch.int64), vals)
 
 
 def _masked(bag: FlatBag, v: str) -> torch.Tensor:
@@ -254,8 +254,9 @@ def _segment_firsts(sbag: FlatBag, seg_id: torch.Tensor, gather_cols,
                 summed[v] = _segment_sum(_masked(sbag, v), seg_id, cap)
         return exists, first_valid, firsts, summed
     idx = torch.arange(cap, device=dev)
-    first = torch.full((cap,), I64_MAX, dtype=torch.int64, device=dev)
-    first.scatter_reduce_(0, seg_id.to(torch.int64), idx, "amin")
+    first = torch.full((cap,), I64_MAX, dtype=torch.int64,
+                       device=dev).scatter_reduce(
+        0, seg_id.to(torch.int64), idx, "amin")
     first_c = first.clamp(0, cap - 1)
     exists = first < cap
     first_valid = exists & sbag.valid[first_c]

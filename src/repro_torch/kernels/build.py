@@ -118,8 +118,24 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def batch_stride(what: str, t: torch.Tensor, dims: int, B: int) -> int:
+    """The batch stride, in elements, of an operand of a batched launch
+    (B calls in one): 0 where ``t`` has one call's ``dims`` dims (shared
+    by the B calls, read in place), a slice's size where it has a
+    leading axis of B. Raises for a B outside [1, 65535] (the kernels'
+    grid axis)."""
+    if isinstance(B, bool) or not 1 <= B <= 65535:
+        raise ValueError(f"{what}: batch of {B}, want 1 to 65535")
+    if t.dim() == dims:
+        return 0
+    if t.dim() == dims + 1 and t.shape[0] == B:
+        return t[0].numel()
+    raise ValueError(f"{what}: want {dims} dims, or {dims + 1} with a "
+                     f"leading batch of {B}; got {tuple(t.shape)}")
+
+
 def launch(fn, index: int, args: tuple, what: str, counts: dict,
-           counter: str) -> None:
+           counter: str, batched: Optional[str] = None) -> None:
     """Call the C entry point ``fn(*args, stream)`` on CUDA device
     ``index`` and count the launch: every wrapper launches through here.
 
@@ -129,7 +145,8 @@ def launch(fn, index: int, args: tuple, what: str, counts: dict,
     and back after. A nonzero return (the entry point's
     ``cudaGetLastError()``) raises; else ``counts[counter]`` (a kernel
     module's ``globals()`` or a dict of counts) gains one, under a lock,
-    since the distributed path launches from one thread per site."""
+    since the distributed path launches from one thread per site, and
+    so does ``counts[batched]`` where the launch ran a batch of calls."""
     C = torch._C
     prev = C._cuda_getDevice()
     if prev == index:
@@ -144,3 +161,5 @@ def launch(fn, index: int, args: tuple, what: str, counts: dict,
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
     with _COUNT_LOCK:
         counts[counter] += 1
+        if batched is not None:
+            counts[batched] += 1

@@ -78,6 +78,14 @@
 //      search inside the bracket it found.
 // An r that fits in the fences is the same code with one sector of heads
 // a bracket.
+//
+// Batched launches (the batched family execution, core.codegen
+// vmap_program): both kernels take a batch of B calls in one launch, the
+// batch as blockIdx.y. Every operand has a batch stride, in elements: 0
+// for an operand the calls share, which is read in place and not copied B
+// times; merge_heads then builds the heads once, when the sorted keys are
+// shared. Each batch row runs exactly the code of a launch of its own on
+// its slice, so it gives that launch's bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -167,8 +175,12 @@ template <> struct Lanes<2> {
   __device__ static T zero() { return make_longlong2(0, 0); }
 };
 
+// the heads of batch row blockIdx.y: keys at ks, heads at hs elements a row
 __global__ void merge_heads_kernel(const int64_t* __restrict__ keys,
-                                   int64_t r, int64_t* __restrict__ heads) {
+                                   int64_t r, int64_t ks,
+                                   int64_t* __restrict__ heads, int64_t hs) {
+  keys += blockIdx.y * ks;
+  heads += blockIdx.y * hs;
   const int64_t nh = (r + 3) / 4, stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nh;
        i += stride)
@@ -177,12 +189,20 @@ __global__ void merge_heads_kernel(const int64_t* __restrict__ keys,
 
 __global__ void __launch_bounds__(MERGE_THREADS, 1)
     merge_positions_kernel(const int64_t* __restrict__ keys, int64_t r,
-                           const int64_t* __restrict__ heads,
-                           const int64_t* __restrict__ queries, int64_t n,
-                           int wl, int nf, bool vec,
+                           int64_t ks, const int64_t* __restrict__ heads,
+                           int64_t hs, const int64_t* __restrict__ queries,
+                           int64_t qs, int64_t n, int wl, int nf,
                            int32_t* __restrict__ lo_out,
                            int32_t* __restrict__ hi_out) {
   extern __shared__ int64_t fence[];
+  // batch row blockIdx.y: its keys, heads and queries at their strides,
+  // its outputs n apart
+  keys += blockIdx.y * ks;
+  heads += blockIdx.y * hs;
+  queries += blockIdx.y * qs;
+  lo_out += blockIdx.y * n;
+  hi_out += blockIdx.y * n;
+  const bool vec = ((uintptr_t)keys & 15) == 0;
   const int sh = wl - 2;             // a fence every 2^sh heads
   for (int f = threadIdx.x; f < nf; f += blockDim.x)
     fence[f] = heads[(int64_t)f << sh];
@@ -253,9 +273,13 @@ __global__ void __launch_bounds__(MERGE_THREADS, 1)
 template <int VEC>
 __global__ void __launch_bounds__(GATHER_THREADS, GATHER_PER_SM)
 gather_rows_kernel(const int64_t* __restrict__ values, int64_t r, int d,
-                   const int64_t* __restrict__ idx, int64_t n,
-                   int64_t* __restrict__ out) {
+                   int64_t vs, const int64_t* __restrict__ idx, int64_t is,
+                   int64_t n, int64_t* __restrict__ out) {
   typedef typename Lanes<VEC>::T V;
+  // batch row blockIdx.y: values and ids at their strides, out n d apart
+  values += blockIdx.y * vs;
+  idx += blockIdx.y * is;
+  out += blockIdx.y * n * d;
   constexpr int U = GATHER_UNROLL / VEC;       // loads in flight a thread
   // a tile's ids, with room for the head below the first
   __shared__ int4 stage[2][GATHER_TILE / 2 + 1];
@@ -320,9 +344,12 @@ gather_rows_kernel(const int64_t* __restrict__ values, int64_t r, int d,
   }
 }
 
-static cudaError_t launch_merge(const int64_t* keys, int64_t r,
-                                int64_t* heads, const int64_t* queries,
-                                int64_t n, int32_t* lo, int32_t* hi,
+// B calls (batch rows) in one launch: keys at stride ks, queries at qs,
+// heads at hs (hb rows of them built: 1 where ks is 0), lo and hi n apart.
+static cudaError_t launch_merge(const int64_t* keys, int64_t r, int64_t ks,
+                                int64_t* heads, int64_t hs, int hb,
+                                const int64_t* queries, int64_t qs,
+                                int64_t n, int B, int32_t* lo, int32_t* hi,
                                 cudaStream_t st) {
   int wl = 4;                         // w = 2^wl keys between two fences
   while (((r + (1LL << wl) - 1) >> wl) > MAX_FENCES) ++wl;
@@ -341,44 +368,61 @@ static cudaError_t launch_merge(const int64_t* keys, int64_t r,
         &per_sm, merge_positions_kernel, MERGE_THREADS, smem);
   if (err != cudaSuccess) return err;
   if (r > 0)
-    merge_heads_kernel<<<blocks_for((r + 3) / 4, 256), 256, 0, st>>>(
-        keys, r, heads);
+    merge_heads_kernel<<<dim3(blocks_for((r + 3) / 4, 256), hb), 256, 0,
+                         st>>>(keys, r, ks, heads, hs);
+  // the persistent grid's blocks, shared out over the batch rows so that
+  // all of them stay resident together (a row's blocks past that would
+  // walk their share of its queries in a second wave)
   int64_t blocks = (n + MERGE_THREADS - 1) / MERGE_THREADS;
   const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > resident) blocks = resident;
-  merge_positions_kernel<<<(int)blocks, MERGE_THREADS, smem, st>>>(
-      keys, r, heads, queries, n, wl, nf, ((uintptr_t)keys & 15) == 0, lo,
-      hi);
+  const int64_t share = resident / B > 0 ? resident / B : 1;
+  if (blocks > share) blocks = share;
+  merge_positions_kernel<<<dim3((unsigned)blocks, B), MERGE_THREADS, smem,
+                           st>>>(keys, r, ks, heads, hs, queries, qs, n, wl,
+                                 nf, lo, hi);
   return cudaSuccess;
 }
 
-// keys (r,) ascending, r < 2^31; queries (n,); lo and hi (n,) int32;
-// heads: scratch of ceil(r / 4) int64, 16-byte aligned (null only for
+// B calls (batch rows) in one launch, B = 1 and the strides 0 for one
+// call: batch row b searches keys + b ks, (r,) ascending with r < 2^31,
+// for queries + b qs, (n,), into lo + b n and hi + b n, int32; ks or qs 0
+// for an operand the rows share. heads: scratch of B rows (1 where ks is
+// 0) of hs >= ceil(r / 4) int64, hs even, 16-byte aligned (null only for
 // r = 0). Returns cudaGetLastError() after the launches (nonzero: not
 // launched).
 extern "C" int merge_positions_launch(const void* keys, int64_t r,
-                                      const void* queries, int64_t n,
-                                      void* lo, void* hi, void* heads,
+                                      int64_t ks, const void* queries,
+                                      int64_t n, int64_t qs, int B, void* lo,
+                                      void* hi, void* heads, int64_t hs,
                                       void* stream) {
-  if (r < 0 || r > 2147483647LL || n < 0 || ((uintptr_t)heads & 15) != 0 ||
-      (r > 0 && heads == nullptr))
+  if (r < 0 || r > 2147483647LL || n < 0 || B < 1 || B > 65535 || ks < 0 ||
+      qs < 0 || hs < (r + 3) / 4 || (hs & 1) != 0 ||
+      ((uintptr_t)heads & 15) != 0 || (r > 0 && heads == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int64_t* k = (const int64_t*)keys;
-    const int64_t* q = (const int64_t*)queries;
-    int64_t* h = (int64_t*)heads;
-    int32_t *l = (int32_t*)lo, *g = (int32_t*)hi;
-    cudaStream_t st = (cudaStream_t)stream;
-    const cudaError_t err = launch_merge(k, r, h, q, n, l, g, st);
+    const cudaError_t err = launch_merge(
+        (const int64_t*)keys, r, ks, (int64_t*)heads, ks ? hs : 0,
+        ks ? B : 1, (const int64_t*)queries, qs, n, B, (int32_t*)lo,
+        (int32_t*)hi, (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }
 
+// B gathers in one launch, B = 1 and the strides 0 for one call: batch
+// row b gathers values + b vs, (r, d), at idx + b is, (n,), into out + b
+// n d; vs or is 0 for an operand the rows share.
 extern "C" int gather_rows_launch(const void* values, int64_t r, int d,
-                                  const void* idx, int64_t n, void* out,
+                                  int64_t vs, const void* idx, int64_t n,
+                                  int64_t is, int B, void* out,
                                   void* stream) {
+  if (B < 1 || B > 65535 || vs < 0 || is < 0)
+    return (int)cudaErrorInvalidValue;
   if (n <= 0 || d <= 0) return (int)cudaGetLastError();
+  const int64_t* v = (const int64_t*)values;
+  const int64_t* i = (const int64_t*)idx;
+  int64_t* o = (int64_t*)out;
+  cudaStream_t st = (cudaStream_t)stream;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -386,14 +430,16 @@ extern "C" int gather_rows_launch(const void* values, int64_t r, int d,
   if (err != cudaSuccess) return (int)err;
   const int64_t tiles = (n + GATHER_TILE - 1) / GATHER_TILE;
   const int64_t grid = (int64_t)(sms > 0 ? sms : 1) * GATHER_PER_SM;
-  const int B = (int)(tiles < grid ? tiles : grid);
-  cudaStream_t st = (cudaStream_t)stream;
-  const int64_t* v = (const int64_t*)values;
-  const int64_t* i = (const int64_t*)idx;
-  int64_t* o = (int64_t*)out;
-  if (d % 2 == 0 && ((uintptr_t)values | (uintptr_t)out) % 16 == 0)
-    gather_rows_kernel<2><<<B, GATHER_THREADS, 0, st>>>(v, r, d, i, n, o);
+  const int64_t share = grid / B > 0 ? grid / B : 1;  // the grid, shared
+  const int G = (int)(tiles < share ? tiles : share);
+  // two lanes a load where every row's values and out are 16-byte aligned
+  const bool pairs = d % 2 == 0 && vs % 2 == 0 &&
+                     ((uintptr_t)v | (uintptr_t)o) % 16 == 0;
+  if (pairs)
+    gather_rows_kernel<2><<<dim3(G, B), GATHER_THREADS, 0, st>>>(
+        v, r, d, vs, i, is, n, o);
   else
-    gather_rows_kernel<1><<<B, GATHER_THREADS, 0, st>>>(v, r, d, i, n, o);
+    gather_rows_kernel<1><<<dim3(G, B), GATHER_THREADS, 0, st>>>(
+        v, r, d, vs, i, is, n, o);
   return (int)cudaGetLastError();
 }

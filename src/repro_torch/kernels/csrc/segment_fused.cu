@@ -57,6 +57,15 @@
 // so repeated runs are bit-identical. With more than 4 value columns,
 // more blocks along y take 4 columns each; the first of them writes the
 // first rows and keys.
+//
+// Batched launches (the batched family execution, core.codegen
+// vmap_program): the two passes take a batch of B calls, the batch as
+// blockIdx.z of the tile pass and blockIdx.y of the carry pass. The
+// values, keys and ids have a batch stride each, in elements (0 for an
+// operand the calls share: read in place, not copied B times); the
+// outputs and the scratch are B rows of a call's. Each batch row runs
+// exactly the code of a launch of its own on its slice, carries and all,
+// so it gives that launch's bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,6 +115,19 @@ struct Firsts {
   int32_t* row_first;
   int32_t* row_last;
 };
+
+// batch row z's first rows: its keys at kst elements a row, its fidx,
+// fvals and row scratch at a call's size (S segments, NT tiles)
+__device__ __forceinline__ Firsts firsts_at(Firsts f, int64_t z,
+                                            int64_t kst, int64_t S,
+                                            int64_t NT) {
+  f.keys += z * kst;
+  f.fidx += z * S;
+  f.fvals += z * S * f.k;
+  f.row_first += z * NT;
+  f.row_last += z * NT;
+  return f;
+}
 
 template <int DC>
 __device__ __forceinline__ void write_run(float* __restrict__ out, int d,
@@ -728,6 +750,8 @@ static inline int carry_blocks(int NT, int64_t S) {
   return (int)((warps + CARRY_THREADS / 32 - 1) / (CARRY_THREADS / 32));
 }
 
+// (batch row blockIdx.z: values at vs, ids at ss, keys at kst elements a
+// row; gridDim.x is the tile count NT)
 template <int DC>
 __global__ void __launch_bounds__(Tile<DC>::THREADS)
     ssf_tile(const float* __restrict__ vals, const int32_t* __restrict__ seg,
@@ -735,9 +759,13 @@ __global__ void __launch_bounds__(Tile<DC>::THREADS)
              int32_t* __restrict__ tile_first,
              int32_t* __restrict__ tile_last,
              float* __restrict__ carry_first,
-             float* __restrict__ carry_last, Firsts fs) {
-  tile_pass<DC>(vals, seg, n, d, S, sums,
-                tile_first, tile_last, carry_first, carry_last, fs);
+             float* __restrict__ carry_last, Firsts fs, int64_t vs,
+             int64_t ss, int64_t kst) {
+  const int64_t z = blockIdx.z, NT = gridDim.x;
+  tile_pass<DC>(vals + z * vs, seg + z * ss, n, d, S,
+                sums + z * S * d, tile_first + z * NT, tile_last + z * NT,
+                carry_first + z * NT * d, carry_last + z * NT * d,
+                firsts_at(fs, z, kst, S, NT));
 }
 
 __global__ void __launch_bounds__(CARRY_THREADS)
@@ -745,7 +773,15 @@ __global__ void __launch_bounds__(CARRY_THREADS)
               const int32_t* __restrict__ tile_last,
               const float* __restrict__ carry_first,
               const float* __restrict__ carry_last, int NT, int d, int S,
-              float* __restrict__ sums, Firsts fs) {
+              float* __restrict__ sums, Firsts fs, int64_t kst) {
+  // batch row blockIdx.y: its scratch, outputs and keys
+  const int64_t z = blockIdx.y;
+  tile_first += z * NT;
+  tile_last += z * NT;
+  carry_first += z * NT * d;
+  carry_last += z * NT * d;
+  sums += z * S * d;
+  fs = firsts_at(fs, z, kst, S, NT);
   // the columns of a carry step (min(d, 4)) and its width, so that the
   // step's loads fit the registers
   const auto pass = [&](auto dc) {
@@ -759,36 +795,49 @@ __global__ void __launch_bounds__(CARRY_THREADS)
   else pass(std::integral_constant<int, 4>());
 }
 
+// input strides of a batched launch, in elements (0: shared)
+struct Strides {
+  int64_t vals, seg, keys;
+};
+
 template <int DC>
-static cudaError_t launch_tile(int NT, int groups, cudaStream_t st,
+static cudaError_t launch_tile(int NT, int groups, int B, cudaStream_t st,
                                const float* vals, const int32_t* seg,
                                int64_t n, int d, int S, float* sums,
                                int32_t* tf, int32_t* tl, float* cf,
-                               float* cl, const Firsts& fs) {
+                               float* cl, const Firsts& fs,
+                               const Strides& bs) {
   const size_t smem = Tile<DC>::SMEM + Tile<DC>::OUT;
   cudaError_t err = cudaFuncSetAttribute(
       ssf_tile<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  ssf_tile<DC><<<dim3(NT, groups), Tile<DC>::THREADS, smem, st>>>(
-      vals, seg, n, d, S, sums, tf, tl, cf, cl, fs);
+  ssf_tile<DC><<<dim3(NT, groups, B), Tile<DC>::THREADS, smem, st>>>(
+      vals, seg, n, d, S, sums, tf, tl, cf, cl, fs, bs.vals, bs.seg,
+      bs.keys);
   return cudaSuccess;
 }
 
-// n rows of d >= 0 f32 values, k >= 0 int64 key lanes and int32 ids;
-// S >= 0 segments (none: nothing is launched). Scratch for NT =
+// B calls (batch rows) in one launch sequence, B = 1 and the strides 0
+// for one call: batch row b reads n rows of d >= 0 f32 values at vals +
+// b vs, k >= 0 int64 key lanes at keys + b ks and int32 ids at seg + b ss
+// (a stride 0 for an operand the rows share); S >= 0 segments (none:
+// nothing is launched). Outputs and scratch: B rows of a call's, NT =
 // ceil(n / 2048) tiles (refused if `tiles` differs): tile_first,
-// tile_last, row_first and row_last hold NT int32 each, carry_first and
+// tile_last, row_first and row_last hold NT int32 a row, carry_first and
 // carry_last NT rows of d floats. Returns cudaGetLastError() after the
 // launches (nonzero: not launched).
 extern "C" int segment_sum_first_launch(
-    const void* vals, const void* keys, const void* seg, int64_t n, int d,
-    int k, int64_t S, void* sums, void* fidx, void* fvals, int64_t tiles,
-    void* tile_first, void* tile_last, void* row_first, void* row_last,
-    void* carry_first, void* carry_last, void* stream) {
+    const void* vals, int64_t vs, const void* keys, int64_t ks,
+    const void* seg, int64_t ss, int64_t n, int d, int k, int64_t S, int B,
+    void* sums, void* fidx, void* fvals, int64_t tiles, void* tile_first,
+    void* tile_last, void* row_first, void* row_last, void* carry_first,
+    void* carry_last, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n < 0 || d < 0 || k < 0 || S < 0 || S >= INT32_MAX ||
-      n >= INT32_MAX || tiles != (n + TILE - 1) / TILE)
+      n >= INT32_MAX || tiles != (n + TILE - 1) / TILE || B < 1 ||
+      B > 65535 || vs < 0 || ss < 0 || ks < 0)
     return (int)cudaErrorInvalidValue;
+  const Strides bs{vs, ss, ks};
   if (S == 0) return (int)cudaGetLastError();
   const int NT = (int)tiles, s = (int)S;
   const int DC = d < 1 ? 1 : (d < 4 ? d : 4);
@@ -802,17 +851,17 @@ extern "C" int segment_sum_first_launch(
   float *cf = (float*)carry_first, *cl = (float*)carry_last;
   if (NT > 0) {
     const cudaError_t err =
-        DC == 1   ? launch_tile<1>(NT, groups, st, v, g, n, d, s, o, tf, tl,
-                                   cf, cl, fs)
-        : DC == 2 ? launch_tile<2>(NT, groups, st, v, g, n, d, s, o, tf, tl,
-                                   cf, cl, fs)
-        : DC == 3 ? launch_tile<3>(NT, groups, st, v, g, n, d, s, o, tf, tl,
-                                   cf, cl, fs)
-                  : launch_tile<4>(NT, groups, st, v, g, n, d, s, o, tf, tl,
-                                   cf, cl, fs);
+        DC == 1   ? launch_tile<1>(NT, groups, B, st, v, g, n, d, s, o, tf,
+                                   tl, cf, cl, fs, bs)
+        : DC == 2 ? launch_tile<2>(NT, groups, B, st, v, g, n, d, s, o, tf,
+                                   tl, cf, cl, fs, bs)
+        : DC == 3 ? launch_tile<3>(NT, groups, B, st, v, g, n, d, s, o, tf,
+                                   tl, cf, cl, fs, bs)
+                  : launch_tile<4>(NT, groups, B, st, v, g, n, d, s, o, tf,
+                                   tl, cf, cl, fs, bs);
     if (err != cudaSuccess) return (int)err;
   }
-  ssf_carry<<<carry_blocks(NT, S), CARRY_THREADS, 0, st>>>(
-      tf, tl, cf, cl, NT, d, s, o, fs);
+  ssf_carry<<<dim3(carry_blocks(NT, S), B), CARRY_THREADS, 0, st>>>(
+      tf, tl, cf, cl, NT, d, s, o, fs, bs.keys);
   return (int)cudaGetLastError();
 }

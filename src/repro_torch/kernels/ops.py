@@ -19,13 +19,23 @@ card, the plain backward formula (``ref.attention_bwd_ref``,
 its wrapper raises on a CUDA input that requires grad in grad mode,
 where the kernel's output would silently carry none.
 
+The batched pass (``batched_pass``): inside it, ``segment_sum_first``,
+``merge_positions`` and ``gather_rows`` go through ``torch.library``
+custom ops, so that ``torch.func.vmap`` hands a batched call to the op's
+vmap rule, which launches the batched kernel once for the whole batch on
+the card and runs the plain version a slice at a time on the CPU.
+Outside it the wrappers launch directly, with no dispatcher between.
+
 Launch counts: ``launch_counts()`` reads the plain-integer counter each
 kernel wrapper keeps, ``reset_launch_counts()`` zeroes them.
+``batched_launch_counts()`` says how many of those launches ran a batch
+(on the path, the vmap rules' launches on the card).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -86,6 +96,13 @@ def segment_sum_first(values: torch.Tensor, keys: torch.Tensor,
     """Fused Gamma tail: (segment sums f32, first-row index i32,
     first-row key values i64). values (n, d); keys (n, k) int64
     bit-views; seg_ids (n,) non-decreasing."""
+    if _in_batched_pass():
+        return _batched_ops()["segment_sum_first"](values, keys, seg_ids,
+                                                   num_segments)
+    return _segment_sum_first(values, keys, seg_ids, num_segments)
+
+
+def _segment_sum_first(values, keys, seg_ids, num_segments: int) -> tuple:
     if not _route(seg_ids, "segment_sum_first", values, keys, seg_ids):
         return ref.segment_sum_first_ref(values, keys, seg_ids,
                                          num_segments)
@@ -98,6 +115,12 @@ def merge_positions(sorted_keys: torch.Tensor, queries: torch.Tensor
                     ) -> tuple:
     """(lo, hi) = searchsorted(sorted_keys, queries, left/right) as
     int32 — the join inner loop's position step."""
+    if _in_batched_pass():
+        return _batched_ops()["merge_positions"](sorted_keys, queries)
+    return _merge_positions(sorted_keys, queries)
+
+
+def _merge_positions(sorted_keys, queries) -> tuple:
     if not _route(queries, "merge_positions", sorted_keys, queries):
         return ref.merge_positions_ref(sorted_keys, queries)
     return gather_join.merge_positions_cuda(
@@ -107,10 +130,119 @@ def merge_positions(sorted_keys: torch.Tensor, queries: torch.Tensor
 
 def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row gather over int64 bit-views; out-of-range indices gather 0."""
+    if _in_batched_pass():
+        return _batched_ops()["gather_rows"](values, idx)
+    return _gather_rows(values, idx)
+
+
+def _gather_rows(values, idx) -> torch.Tensor:
     if not _route(values, "gather_rows", values, idx):
         return ref.gather_rows_ref(values, idx)
     return gather_join.gather_rows_cuda(values.contiguous(),
                                         idx.to(torch.int64).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the batched pass: custom ops whose vmap rules launch the batched kernels
+# ---------------------------------------------------------------------------
+
+_PASS = threading.local()
+_OPS_LOCK = threading.Lock()
+_OPS: dict = {}
+
+
+def _in_batched_pass() -> bool:
+    return getattr(_PASS, "on", False)
+
+
+@contextlib.contextmanager
+def batched_pass():
+    """Inside the block (on this thread), ``segment_sum_first``,
+    ``merge_positions`` and ``gather_rows`` call their custom ops
+    (``repro_torch::<name>``). Under ``torch.func.vmap`` a call with a
+    batched operand goes to the op's vmap rule: on the card one launch of
+    the batched kernel for the whole batch (an operand without a batch
+    axis is shared, batch stride 0, not copied), which raises if it
+    cannot launch; on the CPU the plain version a slice at a time. A call
+    whose operands carry no batch axis runs the op's own function: one
+    launch, as outside the block. The batched executor
+    (``core.codegen.vmap_program``) sets it around its vmap."""
+    prev = _in_batched_pass()
+    _PASS.on = True
+    try:
+        yield
+    finally:
+        _PASS.on = prev
+
+
+def _operands(in_dims, *xs) -> tuple:
+    """(tensor, batched) for each operand, the batch axis moved first."""
+    return tuple((x, False) if d is None else (x.movedim(d, 0), True)
+                 for x, d in zip(xs, in_dims))
+
+
+def _slice_calls(B: int, fn, ops, *rest) -> tuple:
+    """The plain version over the batch, a slice at a time, its outputs
+    stacked along a new leading batch axis."""
+    outs = [fn(*(x[b] if batched else x for x, batched in ops), *rest)
+            for b in range(B)]
+    if torch.is_tensor(outs[0]):
+        return torch.stack(outs)
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _ssf_vmap(info, in_dims, values, keys, seg_ids, num_segments):
+    ops = _operands(in_dims, values, keys, seg_ids)
+    (v, _), (k, _), (s, _) = ops
+    if not _route(s, "segment_sum_first", v, k, s):
+        return _slice_calls(info.batch_size, ref.segment_sum_first_ref, ops,
+                            num_segments), (0, 0, 0)
+    return segment_fused.segment_sum_first_cuda(
+        v.to(torch.float32).contiguous(), k.contiguous(),
+        s.to(torch.int32).contiguous(), num_segments,
+        info.batch_size), (0, 0, 0)
+
+
+def _merge_vmap(info, in_dims, sorted_keys, queries):
+    ops = _operands(in_dims, sorted_keys, queries)
+    (k, _), (q, _) = ops
+    if not _route(q, "merge_positions", k, q):
+        return _slice_calls(info.batch_size, ref.merge_positions_ref,
+                            ops), (0, 0)
+    return gather_join.merge_positions_cuda(
+        k.to(torch.int64).contiguous(), q.to(torch.int64).contiguous(),
+        info.batch_size), (0, 0)
+
+
+def _gather_vmap(info, in_dims, values, idx):
+    ops = _operands(in_dims, values, idx)
+    (v, _), (i, _) = ops
+    if not _route(v, "gather_rows", v, i):
+        return _slice_calls(info.batch_size, ref.gather_rows_ref, ops), 0
+    return gather_join.gather_rows_cuda(
+        v.contiguous(), i.to(torch.int64).contiguous(), info.batch_size), 0
+
+
+def _batched_ops() -> dict:
+    """The three custom ops, defined with their vmap rules at first use
+    (nothing is registered when the module is imported)."""
+    with _OPS_LOCK:
+        if not _OPS:
+            for name, fn, schema, rule in (
+                    ("segment_sum_first", _segment_sum_first,
+                     "(Tensor values, Tensor keys, Tensor seg_ids, "
+                     "int num_segments) -> (Tensor, Tensor, Tensor)",
+                     _ssf_vmap),
+                    ("merge_positions", _merge_positions,
+                     "(Tensor sorted_keys, Tensor queries) -> "
+                     "(Tensor, Tensor)", _merge_vmap),
+                    ("gather_rows", _gather_rows,
+                     "(Tensor values, Tensor idx) -> Tensor", _gather_vmap)):
+                op = torch.library.custom_op(f"repro_torch::{name}", fn,
+                                             mutates_args=(), schema=schema)
+                torch.library.register_vmap(op, rule)
+                _OPS[name] = op
+        return _OPS
 
 
 def pack_rows(values: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor
@@ -398,7 +530,19 @@ def launch_counts() -> dict:
             "rwkv6_bwd": rwkv6_kernel.BWD_LAUNCHES}
 
 
+def batched_launch_counts() -> dict:
+    """Of ``launch_counts()``' segment_sum_first, merge_positions and
+    gather_rows, the launches that ran a batch of calls (a wrapper given
+    a batch size)."""
+    return {"segment_sum_first": segment_fused.BATCHED_LAUNCHES,
+            "merge_positions": gather_join.MERGE_BATCHED_LAUNCHES,
+            "gather_rows": gather_join.GATHER_BATCHED_LAUNCHES}
+
+
 def reset_launch_counts() -> None:
+    segment_fused.BATCHED_LAUNCHES = 0
+    gather_join.MERGE_BATCHED_LAUNCHES = 0
+    gather_join.GATHER_BATCHED_LAUNCHES = 0
     segment_reduce_kernel.LAUNCHES = 0
     segment_fused.LAUNCHES = 0
     gather_join.MERGE_LAUNCHES = 0

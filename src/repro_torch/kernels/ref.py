@@ -23,7 +23,7 @@ def segment_reduce_ref(values: torch.Tensor, seg_ids: torch.Tensor,
     ids = torch.where(ok, seg_ids, torch.zeros_like(seg_ids)).to(torch.int64)
     out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
                       dtype=values.dtype, device=values.device)
-    return out.index_add_(0, ids, vals)
+    return out.index_add(0, ids, vals)
 
 
 def segment_sum_first_ref(values: torch.Tensor, keys: torch.Tensor,
@@ -34,11 +34,17 @@ def segment_sum_first_ref(values: torch.Tensor, keys: torch.Tensor,
     n = seg_ids.shape[0]
     dev = seg_ids.device
     sums = segment_reduce_ref(values, seg_ids, num_segments)
-    ok = (seg_ids >= 0) & (seg_ids < num_segments)
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
     fidx = torch.full((num_segments,), I32_MAX, dtype=torch.int32,
                       device=dev)
-    fidx.scatter_reduce_(0, seg_ids[ok].to(torch.int64), idx[ok], "amin")
+    if num_segments > 0:
+        # a dropped row takes part as INT32_MAX at slot 0, which moves no
+        # minimum: no shape here depends on the data, so torch.func.vmap
+        # maps it
+        ok = (seg_ids >= 0) & (seg_ids < num_segments)
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        fidx = fidx.scatter_reduce(
+            0, torch.where(ok, seg_ids, 0).to(torch.int64),
+            torch.where(ok, idx, I32_MAX), "amin")
     exists = fidx < n
     gathered = keys[fidx.clamp(0, max(n - 1, 0)).to(torch.int64)]
     fvals = torch.where(exists[:, None], gathered, torch.zeros_like(gathered))

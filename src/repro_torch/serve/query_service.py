@@ -39,11 +39,11 @@ the hint *shape*, so a warm call with a DIFFERENT heavy-key set rebinds
 with zero retraces, exactly like ``N.Param`` constants.
 
 ``execute_many`` serves concurrent invocations of one family: it
-resolves the family once (one cache lookup, one ``batch_calls``) and
-runs the warm executable once per parameter binding. The reference
-stacks the bindings and runs them under ``jax.vmap``; the port's
-executable launches ctypes-bound kernels and reads sizes on the host,
-which ``torch.func.vmap`` cannot map through.
+resolves the family once (one cache lookup, one ``batch_calls``),
+stacks the parameter bindings into a batch axis and runs the program
+body once over it (``codegen.vmap_program``, ``torch.func.vmap``; one
+callable cached per batch size, as the reference caches its jitted
+``jax.vmap``), each kernel launching once for the whole batch.
 
 Stored datasets (``storage.StoredDataset``) serve through
 ``execute_stored`` — one warm plan, zone maps re-selecting chunks per
@@ -61,8 +61,10 @@ distributed execute folds its receive-load imbalance in.
 from __future__ import annotations
 
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dc_field
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.columnar.table import FlatBag
 from repro_torch.core import codegen as CG
@@ -104,6 +106,12 @@ class CacheEntry:
     param_names: tuple
     class_caps: Dict[str, int]
     hits: int = 0
+    # execute_many's batched bodies, one per batch size
+    batch_fns: Dict[int, object] = dc_field(default_factory=dict)
+    # the most bindings one batched pass of this family takes on the
+    # card: learned from a pass's measured peak, halved after a pass ran
+    # out of memory (None: not yet learned)
+    batch_cap: Optional[int] = None
     # storage-backed entries: per-part column/skip-predicate
     # requirements derived from the compiled plans (storage.catalog)
     storage_req: Optional[dict] = None
@@ -435,10 +443,13 @@ class QueryService:
                      env: Dict[str, FlatBag]) -> List[Dict[str, FlatBag]]:
         """Batch concurrent invocations of ONE query family: all
         programs must fingerprint identically (same structure, differing
-        only in lifted constant values). The family resolves once (one
-        cache lookup); the warm executable then runs once per binding
-        over the shared environment, and each program's outputs equal
-        its own ``execute``'s."""
+        only in lifted constant values). The parameter vectors stack
+        into a batch axis and the program body runs once over it
+        (``codegen.vmap_program``) on the shared environment; each
+        program's outputs equal its own ``execute``'s. The pass's memory
+        grows with the batch: a batch of more than the family's
+        ``CacheEntry.batch_cap`` bindings (learned on the card) runs in
+        passes of that many."""
         assert programs, "empty batch"
         assert self.mesh is None, (
             "execute_many is a local-path feature (batching over params)")
@@ -462,7 +473,47 @@ class QueryService:
             # no parameters anywhere: identical invocations
             out = entry.exe(env_c)
             return [out for _ in binds]
-        return [entry.exe(env_c, b) for b in binds]
+        outs: List[Dict[str, FlatBag]] = []
+        while len(outs) < len(binds):
+            part = binds[len(outs):][:entry.batch_cap or len(binds)]
+            try:
+                outs += self._batched_pass(entry, env_c, part)
+                continue
+            except torch.cuda.OutOfMemoryError:
+                if len(part) == 1:
+                    raise
+                entry.batch_cap = len(part) // 2
+            # the failed pass's tensors are gone with its exception
+            torch.cuda.empty_cache()
+        return outs
+
+    @staticmethod
+    def _batched_pass(entry: CacheEntry, env_c: Dict[str, FlatBag],
+                      binds: list) -> List[Dict[str, FlatBag]]:
+        """One pass of the program body over the stacked ``binds``
+        (``codegen.vmap_program``, one callable a batch size). On the
+        card the pass's peak memory above what was held before it sets
+        ``entry.batch_cap``: the bindings that fit in 90% of the memory
+        free to it, the peak taken as linear in the batch."""
+        B = len(binds)
+        stacked = {k: torch.stack([b[k] for b in binds]) for k in binds[0]}
+        vfn = entry.batch_fns.get(B)
+        if vfn is None:
+            vfn = CG.vmap_program(entry.exe)
+            entry.batch_fns[B] = vfn
+        dev = next((b.valid.device for b in env_c.values()
+                    if b.valid.is_cuda), None)
+        if dev is None:
+            batched = vfn(env_c, stacked)
+        else:
+            free, _ = torch.cuda.mem_get_info(dev)
+            base = torch.cuda.memory_allocated(dev)
+            room = free + torch.cuda.memory_reserved(dev) - base
+            torch.cuda.reset_peak_memory_stats(dev)
+            batched = vfn(env_c, stacked)
+            per = max(1, (torch.cuda.max_memory_allocated(dev) - base) / B)
+            entry.batch_cap = max(1, int(0.9 * room / per))
+        return [_slice_outputs(batched, i) for i in range(B)]
 
     # -- storage-backed execution ------------------------------------------
     def fingerprint_stored(self, program: N.Program, dataset,
@@ -725,3 +776,10 @@ def _fold_streamed(folds: Dict[str, tuple],
         else:
             final[name] = acc
     return final
+
+
+def _slice_outputs(batched: Dict[str, FlatBag], i: int
+                   ) -> Dict[str, FlatBag]:
+    return {name: FlatBag({c: a[i] for c, a in bag.data.items()},
+                          bag.valid[i])
+            for name, bag in batched.items()}

@@ -189,6 +189,62 @@ def launched_once_twice_alike(name, args):
 
 
 @pytest.mark.cuda
+def test_batched_launches_bit_exact_per_slice_repeatable_counted(cuda):
+    """The three join kernels' batched launches at B = 8 over
+    ``chip_smoke.batched_cases`` (every combination of shared and
+    batched operands): each slice bit-exact against its plain version
+    and a launch of its own, two launches bit-identical, each counted
+    as a launch and as a batched launch."""
+    for name, args, batched in chip_smoke.batched_cases(
+            np.random.RandomState(4), cuda):
+        launch, _, _ = chip_smoke.batched_fns(name, args, batched,
+                                              chip_smoke.BATCH)
+        before = TK.launch_counts()[name], TK.batched_launch_counts()[name]
+        launch()
+        assert (TK.launch_counts()[name],
+                TK.batched_launch_counts()[name]) == (before[0] + 1,
+                                                      before[1] + 1), name
+        chip_smoke.check_batched(name, args, batched)
+
+
+@pytest.mark.cuda
+def test_vmap_rules_launch_the_batched_kernels_once(cuda):
+    """Under ``batched_pass`` a vmapped call of each kernel's wrapper
+    launches its batched kernel once (counted as a launch and as a
+    batched launch), bit-equal to the batched wrapper's own launch."""
+    for name, args, batched in chip_smoke.batched_cases(
+            np.random.RandomState(5), cuda)[::4]:
+        tensors = [a for a in args if torch.is_tensor(a)]
+        rest = tuple(a for a in args if not torch.is_tensor(a))
+        dims = tuple(0 if f else None for f in batched) + (None,) * len(rest)
+        before = TK.launch_counts()[name], TK.batched_launch_counts()[name]
+        with TK.batched_pass():
+            got = torch.func.vmap(getattr(TK, name), in_dims=dims)(
+                *tensors, *rest)
+        assert (TK.launch_counts()[name],
+                TK.batched_launch_counts()[name]) == (before[0] + 1,
+                                                      before[1] + 1), name
+        launch, _, _ = chip_smoke.batched_fns(name, args, batched,
+                                              chip_smoke.BATCH)
+        assert chip_smoke.bits_equal(got, launch()), (name, batched)
+
+
+@pytest.mark.cuda
+def test_batched_wrappers_check_inputs(cuda):
+    vals = torch.zeros((8, 5, 2), dtype=torch.int64, device=cuda)
+    idx = torch.zeros((8, 3), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="leading batch of 4"):
+        TG.gather_rows_cuda(vals, idx, 4)
+    with pytest.raises(ValueError, match="batch of 0"):
+        TG.gather_rows_cuda(vals[0], idx[0], 0)
+    with pytest.raises(TypeError, match="int64"):
+        TG.merge_positions_cuda(idx.int(), idx, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        TSF.segment_sum_first_cuda(
+            vals.float().transpose(1, 2), vals, idx[:, :5].int(), 4, 8)
+
+
+@pytest.mark.cuda
 def test_gather_rows_tile_edges_bit_exact_repeatable_counted(cuda):
     """gather_rows around its 1024-row tiles (``gather_tile_cases``: one,
     two and more tiles than the grid's blocks, d from 1 to 12, ids -1,
@@ -1175,7 +1231,14 @@ def test_execute_many_bit_equal_to_execute_on_card(cuda):
     traces = CG.TRACE_STATS.get("traces", 0)
     outs = svc.execute_many(progs, env)
     assert CG.TRACE_STATS.get("traces", 0) == traces
-    assert all(TK.launch_counts()[k] >= len(progs) for k in KERNELS)
+    in_batch = {k: TK.launch_counts()[k] for k in KERNELS}
+    TK.reset_launch_counts()
+    svc.execute(progs[0], env)
+    # one pass over the batch: the launches of one execute, the
+    # segment sums of all 8 bindings in one batched launch
+    assert in_batch == {k: TK.launch_counts()[k] for k in KERNELS}
+    assert all(v > 0 for v in in_batch.values()), in_batch
+    assert TK.batched_launch_counts()["segment_sum_first"] == 0
     for q, out in zip(chip_smoke.M_MIN_QTY, outs):
         chip_smoke.outputs_bit_equal(out, svc.execute(
             chip_smoke.family_program(q), env), str(q))

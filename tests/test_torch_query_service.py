@@ -146,7 +146,8 @@ def test_execute_many_rejects_mixed_families():
 def test_batch_calls_and_plan_cache_counters_match_reference():
     """A cold batch, a warm batch of another size, an execute between
     them and a constant-free family: the same ``stats`` after each step,
-    and no plan rebuild in the port's warm batches."""
+    and the reference's traces: one for the cold batch, and one for the
+    batch of another size (a batched body is built per batch size)."""
     steps = []
     for N, svc, env, CG in services():
         trace = []
@@ -163,11 +164,11 @@ def test_batch_calls_and_plan_cache_counters_match_reference():
         assert outs[0] is outs[1]         # identical invocations run once
         trace.append((dict(svc.stats), None))
         steps.append((trace, rebuilt))
-    (r_trace, _), (t_trace, t_rebuilt) = steps
-    assert [s for s, _ in r_trace] == [s for s, _ in t_trace]
+    (r_trace, r_rebuilt), (t_trace, t_rebuilt) = steps
+    assert r_trace == t_trace
     assert t_trace[-1][0] == {"hits": 2, "misses": 2, "evictions": 0,
                               "batch_calls": 3}
-    assert t_trace[0][1] == 1 and t_rebuilt == 0
+    assert t_trace[0][1] == 1 and t_rebuilt == r_rebuilt == 1
 
 
 def test_execute_many_is_a_local_path_feature():
